@@ -1,0 +1,22 @@
+"""entropy_coders_tpu_torch — the FSE (tANS) container codec on PyTorch + CUDA.
+
+The port of ``entropy_coders_tpu`` (JAX/Pallas on a TPU) to PyTorch and
+hand-written CUDA kernels for an NVIDIA H100 (sm_90a). It writes and reads
+the same ``FSET`` frames (FORMAT.md), byte for byte; the JAX package stays
+the reference it is held against.
+
+* ``frame``     — ``compress``/``decompress`` of the block container;
+* ``ops``       — per-lane kernels' wrappers and plain versions, the
+  shared-stream cores, the per-block histogram;
+* ``kernels``   — nvcc build + ctypes load of ``csrc/*.cu``.
+
+It imports ``torch`` and never ``jax``: the jax-free parts of the JAX
+package (``normalize``, ``native``, ``spec``, ``constants``) are reused as
+they are.
+"""
+
+from .frame import compress, decompress
+
+__version__ = "0.1.0"
+
+__all__ = ["compress", "decompress", "__version__"]

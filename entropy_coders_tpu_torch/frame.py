@@ -1,0 +1,721 @@
+"""Block-container codec (format: FORMAT.md), PyTorch + CUDA.
+
+Counterpart of ``entropy_coders_tpu/frame.py``: it writes and reads the same
+``FSET`` frames, byte for byte. Data splits into fixed-size blocks; each
+block is coded independently (per-lane streams, MODE_FSE_PL; the
+shared-stream k-way interleave, MODE_FSE; or the RAW/RLE escapes).
+
+Pipeline per frame:
+  host split -> one h2d of the full blocks -> device histogram -> host
+  normalize (``entropy_coders_tpu.normalize``) + header write -> C++ table
+  build -> per-lane encode kernel (B2) -> d2h -> C++ lane merge -> frame
+  assembly. Decode mirrors it through the C++ lane split and the per-lane
+  decode kernel (B1).
+
+``device`` selects where the block work runs. It defaults to ``"cuda"`` and
+raises when CUDA is unavailable; ``device="cpu"`` runs the kernels' plain
+PyTorch versions. ``lanes=None`` resolves to the per-lane path on CUDA (the
+JAX package resolves it to its TPU backend). The chunks run one after the
+other: nothing overlaps the host merge with device work yet.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from entropy_coders_tpu.constants import (TABLE_LOG_DEFAULT, TABLE_LOG_MAX,
+                                          TABLE_LOG_MIN)
+from entropy_coders_tpu.normalize import normalize_batch
+
+from .ops import pl_coder as PL
+from .ops.coder import decode_core, encode_core
+from .ops.histogram import histogram_blocks
+from .ops.unsigned import to_device, to_numpy
+
+MAGIC = b"FSET"
+VERSION = 2
+FLAG_SHARED = 1
+FLAG_CRC = 2  # per-block crc32 table present (integrity checking)
+FLAG_PACKED = 4  # MODE_FSE_PL lane streams bit-packed (no dead bits)
+
+MODE_FSE = 0
+MODE_RAW = 1
+MODE_RLE = 2
+MODE_FSE_PL = 3  # per-lane streams (ops.pl_coder kernels)
+
+DEFAULT_BLOCK_SIZE = 1 << 17
+DEFAULT_K = 1024
+
+# Default table-log policy of the per-lane path, the JAX package's
+# ("fast", 0.0025) (frame.py PL_TABLE_LOG): it changes the frame's bytes, so
+# the port keeps it until a measurement on the card decides otherwise.
+PL_TABLE_LOG = ("fast", 0.0025)
+
+_CHUNK_RAW = 64 << 20  # raw bytes per kernel call on the per-lane path
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but CUDA is not available; pass "
+                           "device='cpu' for the plain PyTorch versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+# --- shared-stream layout (ops.coder) ----------------------------------------
+
+
+def _encode_layout(n: int, k: int):
+    """Static emission layout for blocks of raw length n (see ops.coder)."""
+    m = n - k
+    R = max(_cdiv(m, k), 1)
+    valid = (np.arange(R * k) < m).reshape(R, k)
+    finish_slots = np.array([(n - 1 - s) % k for s in range(k - 1, -1, -1)],
+                            np.int64)
+    W = _cdiv((R * k + k) * 16 + 32, 32) + 2
+    return m, R, valid, finish_slots, W
+
+
+def _blocks_to_syms(blocks: np.ndarray, m: int, R: int, k: int):
+    """(B, n) raw blocks -> (B, R, k) symbols in emission order + (B, k)
+    init symbols (slot t holds byte n-1-t)."""
+    B, n = blocks.shape
+    rev = blocks[:, :m][:, ::-1]
+    pad = R * k - m
+    if pad:
+        rev = np.concatenate([rev, np.zeros((B, pad), np.uint8)], axis=1)
+    syms = rev.reshape(B, R, k)
+    init_syms = blocks[:, n - k:][:, ::-1].copy()
+    return syms, init_syms
+
+
+# --- compress ----------------------------------------------------------------
+
+
+def _pl_eligible(block_size: int, k: int, log2: int) -> bool:
+    """Whether a full block can take the per-lane-stream path
+    (MODE_FSE_PL): k a multiple of 128, block divisible into >= 2 bytes per
+    lane, worst-case lane bit count within the u16 size field, and a
+    reference table log (5..15)."""
+    if k % 128 != 0 or block_size % k != 0:
+        return False
+    q = block_size // k
+    if q < 2 or (q - 1) * log2 + log2 >= (1 << 16):
+        return False
+    return 5 <= log2 <= 15
+
+
+def resolve_shared_table(counts_all, total_len: int, table_log, lanes: bool):
+    """Resolve the shared-table decision from exact global counts.
+
+    Returns ``(norm_table (256,) int32, log2)``, or ``None`` when the input
+    degrades to per-block RAW/RLE modes (degenerate <= 1-symbol data, or an
+    un-normalizable total). ``table_log`` of ``None`` resolves to the
+    default of the ``lanes`` path, as ``compress`` does."""
+    if table_log is None:
+        table_log = PL_TABLE_LOG if lanes else TABLE_LOG_DEFAULT
+    counts_all = np.asarray(counts_all)
+    if np.count_nonzero(counts_all) <= 1:
+        return None
+    try:
+        tables, log2s = normalize_batch(counts_all[None], total_len,
+                                        table_log)
+    except ValueError:
+        return None
+    return tables[0], int(log2s[0])
+
+
+def compress(
+    data,
+    *,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    k: int = DEFAULT_K,
+    shared_table: bool = False,
+    shared_hist=None,
+    table_log: int | str | tuple | None = None,
+    lanes: bool | None = None,
+    checksum: bool = False,
+    bit_pack: bool = False,
+    device="cuda",
+) -> bytes:
+    """Compress ``data`` into a container frame (FORMAT.md), byte-identical
+    to ``entropy_coders_tpu.frame.compress`` with the same knobs.
+
+    ``lanes`` selects the per-lane-stream block mode (MODE_FSE_PL): None =
+    on CUDA devices, True/False to force. ``table_log`` defaults to
+    PL_TABLE_LOG on the lanes path and TABLE_LOG_DEFAULT otherwise; an int,
+    ``"auto"``, ``"fast"`` or ``("fast", eps)`` as in
+    ``entropy_coders_tpu.normalize.normalize_batch``. ``checksum`` appends a
+    per-block crc32 table, verified on decompress. ``bit_pack``
+    (FLAG_PACKED) packs the lane streams at bit granularity and
+    FSE-compresses the lane-size table. ``shared_hist`` (with
+    ``shared_table=True``) supplies a precomputed ``(norm_table, log2)``
+    pair as the shared table. ``device`` is where the block work runs
+    (default ``"cuda"``, which raises when CUDA is unavailable)."""
+    dev = _device(device)
+    if lanes is None:
+        lanes = dev.type == "cuda"
+    if table_log is None:
+        table_log = PL_TABLE_LOG if lanes else TABLE_LOG_DEFAULT
+    data = (np.frombuffer(bytearray(data), np.uint8)
+            if not isinstance(data, np.ndarray) else np.asarray(data, np.uint8))
+    if block_size < 16:
+        raise ValueError("block_size must be >= 16")
+    if k < 1 or k > min(block_size, 0xFFFF):
+        raise ValueError(f"k={k} must be in [1, min(block_size="
+                         f"{block_size}, 65535)]")
+    total_len = len(data)
+    if total_len == 0:
+        return _frame_header(0, k, block_size, 0, False, checksum, bit_pack)
+    n_blocks = _cdiv(total_len, block_size)
+
+    full = total_len // block_size
+    sections: list[bytes] = [b""] * n_blocks
+    modes = np.full(n_blocks, MODE_FSE, np.int32)
+
+    shared_hdr = b""
+    s_shared = None
+    if shared_table:
+        if shared_hist is not None:
+            s_shared = (np.asarray(shared_hist[0], np.int32),
+                        int(shared_hist[1]))
+        else:
+            # int64 counts: exact past u32 for > 4 GiB inputs
+            s_shared = resolve_shared_table(
+                np.bincount(data, minlength=256), total_len, table_log,
+                lanes)
+        if s_shared is None:
+            shared_table = False  # degenerate / un-normalizable input:
+        else:                     # blocks degrade to RAW/RLE
+            shared_hdr = _write_header(*s_shared)
+
+    nsym = None
+    if full:
+        blocks = data[: full * block_size].reshape(full, block_size)
+        # one h2d for the whole input: the device copy feeds both the
+        # histogram and the lane encode kernel
+        blocks_dev = torch.from_numpy(blocks).to(dev)
+        counts = histogram_blocks(blocks_dev).cpu().numpy()
+        # single-symbol blocks can't be FSE-coded (the reference's
+        # normalization rejects table_len == 1); they take the RLE escape
+        nsym = (counts != 0).sum(axis=1)
+        codable = np.flatnonzero(nsym > 1)
+        if codable.size:
+            if shared_table:
+                norm_tables = np.repeat(s_shared[0][None], codable.size,
+                                        axis=0)
+                log2_arr = np.full(codable.size, s_shared[1], np.int64)
+            else:
+                norm_tables, log2_arr = normalize_batch(
+                    counts[codable], block_size, table_log)
+            all_rows = codable.size == full
+            _encode_group(
+                blocks if all_rows else blocks[codable],
+                norm_tables, log2_arr, k, shared_table, sections, modes,
+                codable, dev, lanes=lanes, bit_pack=bit_pack,
+                blocks_dev=(blocks_dev if all_rows else blocks_dev[
+                    torch.from_numpy(codable).to(dev)]))
+
+    if full * block_size < total_len:  # ragged tail block
+        tail = data[full * block_size:]
+        _encode_tail(tail, k, table_log, shared_table, s_shared, sections,
+                     modes, n_blocks - 1, dev, lanes=lanes, bit_pack=bit_pack)
+
+    # RAW/RLE escapes where FSE did not win. Constant-block detection for
+    # full blocks comes free from the device histogram (nsym == 1).
+    raw_lens = [min(block_size, total_len - i * block_size)
+                for i in range(n_blocks)]
+    for i in range(n_blocks):
+        rl = raw_lens[i]
+        o = i * block_size
+        if modes[i] in (MODE_FSE, MODE_FSE_PL) and len(sections[i]) >= rl:
+            modes[i] = MODE_RAW
+            sections[i] = data[o: o + rl].tobytes()
+        if nsym is not None and i < len(nsym):
+            is_const = bool(nsym[i] == 1)
+        else:
+            is_const = rl > 1 and bool((data[o: o + rl] == data[o]).all())
+        if modes[i] != MODE_RLE and rl > 1 and is_const:
+            modes[i] = MODE_RLE
+            sections[i] = bytes([int(data[o])])
+
+    parts = [_frame_header(total_len, k, block_size, n_blocks,
+                           shared_table, checksum, bit_pack)]
+    if shared_table:
+        parts.append(struct.pack("<H", len(shared_hdr)) + shared_hdr)
+    entries = (modes.astype(np.uint32) << 30) | np.array(
+        [len(s) for s in sections], np.uint32)
+    parts.append(entries.astype("<u4").tobytes())
+    if checksum:
+        crcs = np.array(
+            [zlib.crc32(data[i * block_size: i * block_size + raw_lens[i]])
+             & 0xFFFFFFFF for i in range(n_blocks)], np.uint32)
+        parts.append(crcs.astype("<u4").tobytes())
+    parts.extend(sections)
+    return b"".join(parts)
+
+
+def _tl(table) -> int:
+    nz = np.flatnonzero(table)
+    return int(nz[-1]) + 1 if nz.size else 1
+
+
+def _write_header(table, log2: int) -> bytes:
+    """Zstd-format histogram header bytes (C++ writer)."""
+    return PL.require_native().write_header(np.asarray(table, np.int32),
+                                            int(log2), _tl(table))
+
+
+def _read_block_header(sec: bytes):
+    """Parse a histogram header off the front of a block section. Returns
+    (table (256,) int32, log2, payload); raises ValueError on a malformed
+    header."""
+    table, log2, _tl_, n = PL.require_native().read_header(sec)
+    return table, log2, sec[n:]
+
+
+def _pack_size_table(st: bytes) -> bytes:
+    """FLAG_PACKED lane-size table: ``u16 cs_len`` + either the
+    FSE-compressed table (cs_len > 0; reference k=2 frame over the raw u16
+    LE bytes) or the raw table (cs_len == 0, incompressible or degenerate
+    fallback)."""
+    try:
+        cs = PL.require_native().compress(st, k=2)
+        if 0 < len(cs) < min(len(st), 1 << 16):
+            return struct.pack("<H", len(cs)) + cs
+    except ValueError:
+        pass  # degenerate distribution: fall through to raw
+    return struct.pack("<H", 0) + st
+
+
+def _unpack_size_table(sec: bytes, k: int) -> tuple[np.ndarray, bytes]:
+    """Inverse of _pack_size_table: returns (sizes (k,) int32, rest)."""
+    if len(sec) < 2:
+        raise ValueError("truncated lane size table")
+    (cs_len,) = struct.unpack_from("<H", sec)
+    if cs_len == 0:
+        if len(sec) < 2 + 2 * k:
+            raise ValueError("truncated lane size table")
+        st = sec[2: 2 + 2 * k]
+        return (np.frombuffer(st, "<u2").astype(np.int32),
+                sec[2 + 2 * k:])
+    if len(sec) < 2 + cs_len:
+        raise ValueError("truncated lane size table")
+    # max_out bounds a crafted low-entropy stream: the expected output is
+    # exactly 2k bytes, anything bigger is corrupt
+    st = PL.require_native().decompress(sec[2: 2 + cs_len], k=2,
+                                        max_out=2 * k + 8)
+    if len(st) != 2 * k:
+        raise ValueError("size table length mismatch")
+    return np.frombuffer(st, "<u2").astype(np.int32), sec[2 + cs_len:]
+
+
+def _frame_header(total_len, k, block_size, n_blocks, shared,
+                  crc=False, packed=False) -> bytes:
+    flags = ((FLAG_SHARED if shared else 0) | (FLAG_CRC if crc else 0)
+             | (FLAG_PACKED if packed else 0))
+    return MAGIC + struct.pack("<BBHIQI", VERSION, flags, k, block_size,
+                               total_len, n_blocks)
+
+
+def _encode_group_pl(blocks_dev, norm_tables, l2, k, shared_table, sections,
+                     modes, block_ids, bit_pack=False):
+    """Per-lane-stream (MODE_FSE_PL) encode of equal-size blocks sharing one
+    table log, from the device-resident (B, n) uint8 ``blocks_dev``: B2 on
+    CUDA, its plain version on CPU, ~64 MiB of raw bytes per call; then the
+    C++ lane merge and section assembly on the host."""
+    B, n = blocks_dev.shape
+    R = n // k - 1
+    W = PL.encode_w_bound(R, int(l2))
+    chunk = max(1, _cdiv(_CHUNK_RAW, n))
+    for j0 in range(0, B, chunk):
+        words, szs = PL.encode_lanes_norm(blocks_dev[j0: j0 + chunk],
+                                          norm_tables[j0: j0 + chunk],
+                                          k=k, L=int(l2), W=W)
+        words, szs = to_numpy(words), szs.cpu().numpy()
+        payloads = PL.lane_merge_batch(words, szs, pack_bits=bit_pack)
+        for jj in range(words.shape[0]):
+            j = j0 + jj
+            st = szs[jj].astype("<u2").tobytes()
+            # FLAG_PACKED also FSE-compresses the lane-size table (2
+            # bytes/lane, up to 12% of small-k blocks)
+            sec = (_pack_size_table(st) if bit_pack else st) + payloads[jj]
+            if not shared_table:
+                sec = _write_header(norm_tables[j], int(l2)) + sec
+            sections[block_ids[j]] = sec
+            modes[block_ids[j]] = MODE_FSE_PL
+
+
+def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
+                  modes, block_ids, dev, lanes=False, blocks_dev=None,
+                  bit_pack=False):
+    """Encode equal-size blocks, grouped by effective table log. With
+    ``lanes``, eligible groups take the per-lane path (reading
+    ``blocks_dev``, the device copy of ``blocks``, when the caller has one);
+    the others take the shared-stream path (ops.coder)."""
+    B, n = blocks.shape
+    layout = None  # shared-stream emission layout, built on first use
+
+    for l2 in np.unique(log2_arr):
+        rows = np.flatnonzero(log2_arr == l2)
+        if lanes and _pl_eligible(n, k, int(l2)):
+            src = (blocks_dev if blocks_dev is not None
+                   else torch.from_numpy(np.ascontiguousarray(blocks)).to(dev))
+            if len(rows) != B:
+                src = src[torch.from_numpy(rows).to(dev)]
+            _encode_group_pl(src, norm_tables[rows], int(l2), k,
+                             shared_table, sections, modes, block_ids[rows],
+                             bit_pack=bit_pack)
+            continue
+        if layout is None:
+            m, R, valid, finish_slots, W = _encode_layout(n, k)
+            syms, init_syms = _blocks_to_syms(blocks, m, R, k)
+            layout = True
+        table, tt_bits, tt_fs = PL.require_native().build_encode_tables(
+            norm_tables[rows], int(l2))
+        words, total_bits = encode_core(
+            torch.from_numpy(np.ascontiguousarray(syms[rows])).to(dev),
+            torch.from_numpy(valid).to(dev),
+            torch.from_numpy(np.ascontiguousarray(init_syms[rows])).to(dev),
+            torch.from_numpy(finish_slots).to(dev),
+            (to_device(table, dev), to_device(tt_bits, dev),
+             to_device(tt_fs, dev)),
+            k=k, L=int(l2), W=W)
+        words = words.cpu().numpy().astype(np.uint32)
+        total_bits = total_bits.cpu().numpy()
+        for j, r in enumerate(rows):
+            payload = words[j].tobytes()[: (int(total_bits[j]) + 7) // 8]
+            if shared_table:
+                sections[block_ids[r]] = payload
+            else:
+                sections[block_ids[r]] = (
+                    _write_header(norm_tables[r], int(l2)) + payload)
+
+
+def _encode_tail(tail, k, table_log, shared_table, s_shared, sections,
+                 modes, idx, dev, lanes=False, bit_pack=False):
+    """Encode the ragged last block: the per-lane path when the tail happens
+    to be lane-divisible (same eligibility as full blocks), the
+    shared-stream path otherwise. ``s_shared`` is the frame's shared
+    (table, log2) pair, if any."""
+    n = len(tail)
+    k_t = min(k, n)  # every stream needs at least one byte
+    if n < 8 or k_t < 1:
+        modes[idx] = MODE_RAW
+        sections[idx] = tail.tobytes()
+        return
+    try:
+        if shared_table:
+            norm_tables = np.asarray(s_shared[0])[None]
+            log2_arr = np.array([s_shared[1]])
+        else:
+            counts = np.bincount(tail, minlength=256).astype(np.uint32)[None]
+            norm_tables, log2_arr = normalize_batch(counts, n, table_log)
+        tmp_sections = [b""]
+        tmp_modes = np.full(1, MODE_FSE, np.int32)
+        _encode_group(tail[None, :], norm_tables, log2_arr, k_t,
+                      shared_table, tmp_sections, tmp_modes, np.array([0]),
+                      dev, lanes=lanes, bit_pack=bit_pack)
+        sections[idx] = tmp_sections[0]
+        modes[idx] = tmp_modes[0]
+    except ValueError:
+        modes[idx] = MODE_RAW
+        sections[idx] = tail.tobytes()
+
+
+# --- decompress ---------------------------------------------------------------
+
+
+@dataclass
+class _ParsedFrame:
+    k: int
+    block_size: int
+    total_len: int
+    n_blocks: int
+    shared: bool
+    shared_hdr: bytes
+    modes: np.ndarray
+    lens: np.ndarray
+    offs: np.ndarray  # absolute offset of each block section in the frame
+    frame: bytes
+    crcs: np.ndarray | None = None
+    packed: bool = False
+
+    def section(self, i: int) -> bytes:
+        """Block i's section bytes (lazy: a range decode touches only the
+        sections it needs)."""
+        o = int(self.offs[i])
+        return self.frame[o: o + int(self.lens[i])]
+
+
+def _parse_frame(frame: bytes) -> _ParsedFrame:
+    hdr_len = 4 + struct.calcsize("<BBHIQI")
+    if len(frame) < hdr_len:
+        raise ValueError("truncated frame: header")
+    if frame[:4] != MAGIC:
+        raise ValueError("bad magic")
+    version, flags, k, block_size, total_len, n_blocks = struct.unpack_from(
+        "<BBHIQI", frame, 4)
+    if version != VERSION:
+        raise ValueError(f"unsupported version {version}")
+    if flags & ~(FLAG_SHARED | FLAG_CRC | FLAG_PACKED):
+        raise ValueError(f"unknown frame flags 0x{flags:02x}")
+    if k < 1 or block_size < 1:
+        raise ValueError("corrupt frame: zero k or block_size")
+    if n_blocks != (total_len + block_size - 1) // block_size:
+        raise ValueError("corrupt frame: block count mismatch")
+    off = hdr_len
+    shared = bool(flags & FLAG_SHARED)
+    shared_hdr = b""
+    if shared:
+        if len(frame) < off + 2:
+            raise ValueError("truncated frame: shared header length")
+        (hlen,) = struct.unpack_from("<H", frame, off)
+        off += 2
+        if len(frame) < off + hlen:
+            raise ValueError("truncated frame: shared header")
+        shared_hdr = frame[off: off + hlen]
+        off += hlen
+    if len(frame) < off + 4 * n_blocks:
+        raise ValueError("truncated frame: block table")
+    entries = np.frombuffer(frame, np.uint32, count=n_blocks, offset=off)
+    off += 4 * n_blocks
+    modes = (entries >> 30).astype(np.int32)
+    lens = (entries & ((1 << 30) - 1)).astype(np.int64)
+    crcs = None
+    if flags & FLAG_CRC:
+        if len(frame) < off + 4 * n_blocks:
+            raise ValueError("truncated frame: crc table")
+        crcs = np.frombuffer(frame, np.uint32, count=n_blocks,
+                             offset=off).copy()
+        off += 4 * n_blocks
+    offs = (off + np.concatenate([[0], np.cumsum(lens)[:-1]]) if n_blocks
+            else np.zeros(0, np.int64))
+    if n_blocks and len(frame) < off + int(lens.sum()):
+        raise ValueError("truncated frame: sections")
+    return _ParsedFrame(k, block_size, total_len, n_blocks, shared,
+                        shared_hdr, modes, lens, offs, frame, crcs,
+                        bool(flags & FLAG_PACKED))
+
+
+def decompress(frame: bytes, *, start: int = 0, length: int | None = None,
+               out=None, device="cuda"):
+    """Decompress a container frame back to bytes (frames of either
+    package).
+
+    ``start``/``length`` decode only the blocks overlapping that byte range
+    and return exactly that slice. When the frame carries per-block crc32s,
+    each decoded block is verified. ``out``: optional writable buffer the
+    decoded range is written into (returns the byte count written instead
+    of ``bytes``); block-aligned ranges decode straight into it. On a
+    ValueError (corrupt frame / crc mismatch) ``out``'s contents are
+    unspecified. ``device`` is where the block work runs (default
+    ``"cuda"``, which raises when CUDA is unavailable)."""
+    return _decompress_parsed(_parse_frame(frame), start=start,
+                              length=length, out=out, device=device)
+
+
+def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
+                       length: int | None = None, out=None, device="cuda"):
+    """Range-decode an already-parsed frame."""
+    dev = _device(device)
+    if length is None:
+        length = pf.total_len - start
+    if not (0 <= start <= pf.total_len and 0 <= length <= pf.total_len - start):
+        raise ValueError("range outside frame")
+    if pf.block_size:
+        b_lo = start // pf.block_size
+        b_hi = _cdiv(start + length, pf.block_size) if length else b_lo
+    else:
+        b_lo, b_hi = 0, 0
+    wanted = range(b_lo, min(max(b_hi, b_lo), pf.n_blocks))
+    # the output buffer spans only the wanted blocks
+    base = b_lo * pf.block_size
+    span = (min(wanted.stop * pf.block_size, pf.total_len) - base
+            if len(wanted) else 0)
+    cb_direct = cb_view = None
+    if out is not None:
+        cb_view = memoryview(out).cast("B")
+        if cb_view.readonly:
+            raise ValueError("out buffer is read-only")
+        if cb_view.nbytes < length:
+            raise ValueError(
+                f"out buffer too small: {cb_view.nbytes} < {length}")
+        if start == base and span == length:
+            # block-aligned range: decode straight into the caller's buffer
+            cb_direct = np.frombuffer(cb_view, np.uint8, count=span)
+    out = (cb_direct if cb_direct is not None
+           else np.zeros(max(span, 0), np.uint8))
+
+    shared_tbl = shared_l2 = None
+    if pf.shared:
+        shared_tbl, shared_l2, rest = _read_block_header(pf.shared_hdr)
+        if rest:
+            raise ValueError("trailing bytes after shared histogram header")
+
+    # group FSE blocks by (raw_len, log2) for batched decode
+    groups: dict[tuple[int, int], list] = {}
+    pl_groups: dict[tuple[int, int], list] = {}
+    for i in wanted:
+        mode, sec = int(pf.modes[i]), pf.section(i)
+        rl = min(pf.block_size, pf.total_len - i * pf.block_size)
+        o = i * pf.block_size - base
+        if mode == MODE_RAW:
+            if len(sec) != rl:
+                raise ValueError(f"raw block {i} length mismatch")
+            out[o: o + rl] = np.frombuffer(sec, np.uint8)
+        elif mode == MODE_RLE:
+            if len(sec) != 1:
+                raise ValueError(f"rle block {i} length mismatch")
+            out[o: o + rl] = sec[0]
+        elif mode in (MODE_FSE, MODE_FSE_PL):
+            if pf.shared:
+                tbl, l2, payload = shared_tbl, shared_l2, sec
+            else:
+                tbl, l2, payload = _read_block_header(sec)
+            dst = pl_groups if mode == MODE_FSE_PL else groups
+            dst.setdefault((rl, l2), []).append((i, payload, tbl))
+        else:
+            raise ValueError(f"bad block mode {mode}")
+
+    for (rl, log2), items in groups.items():
+        _decode_group(items, rl, log2, pf, out, base, dev)
+    for (rl, log2), items in pl_groups.items():
+        _decode_group_pl(items, rl, log2, pf, out, base, dev)
+    if pf.crcs is not None:
+        for i in wanted:
+            o = i * pf.block_size - base
+            rl = min(pf.block_size, pf.total_len - i * pf.block_size)
+            if zlib.crc32(out[o: o + rl]) & 0xFFFFFFFF != int(pf.crcs[i]):
+                raise ValueError(f"block {i}: crc mismatch (corrupt frame)")
+    if cb_view is not None:
+        if cb_direct is None:  # unaligned range: one staging copy
+            np.frombuffer(cb_view, np.uint8, count=length)[:] = \
+                out[start - base: start - base + length]
+        return length
+    return out[start - base: start - base + length].tobytes()
+
+
+def _decode_group_pl(items, raw_len, log2, pf, out, out_base, dev):
+    """Decode MODE_FSE_PL blocks sharing one (raw_len, log2): the lane
+    sizes and framing are checked on the host, the C++ lane split fills the
+    (B, W, k) word layout, and B1 (its plain version on CPU) decodes
+    ~64 MiB of raw bytes per call."""
+    k = pf.k
+    if not (TABLE_LOG_MIN <= log2 <= TABLE_LOG_MAX):
+        raise ValueError(f"corrupt frame: table log {log2} out of range")
+    if k % 128 != 0 or raw_len % k != 0 or raw_len // k < 2:
+        raise ValueError("corrupt frame: FSE_PL block not lane-divisible")
+    R = raw_len // k - 1
+    B = len(items)
+    sizes = np.zeros((B, k), np.int32)
+    payloads = []
+    norm_tables = np.zeros((B, 256), np.int32)
+    for j, (i, sec, nt) in enumerate(items):
+        if pf.packed:
+            # bit-packed wire (FLAG_PACKED): compressed size table, then
+            # bit-granularity lane streams (total bits, last dead bits 0)
+            sz, lanes_sec = _unpack_size_table(sec, k)
+            if (sz < log2).any() or (sz > (R + 1) * log2).any():
+                # the encoder never emits more than (R+1)*log2 bits per
+                # lane; an oversized claim would make the words allocation
+                # scale with the claim, not the payload
+                raise ValueError(f"block {i}: bad lane sizes")
+            total = int(sz.astype(np.int64).sum())
+            if (total + 7) // 8 != len(lanes_sec):
+                raise ValueError(f"block {i}: bad lane sizes")
+            if total & 7 and lanes_sec[-1] >> (total & 7):
+                raise ValueError(f"block {i}: lane framing error")
+            sizes[j] = sz
+            payloads.append(lanes_sec)
+            norm_tables[j] = nt
+            continue
+        if len(sec) < 2 * k:
+            raise ValueError(f"block {i}: truncated lane sizes")
+        sz = np.frombuffer(sec[: 2 * k], "<u2").astype(np.int32)
+        if (sz < log2).any() or (sz > (R + 1) * log2).any():
+            raise ValueError(f"block {i}: bad lane sizes")
+        if int(((sz + 7) >> 3).sum()) != len(sec) - 2 * k:
+            raise ValueError(f"block {i}: bad lane sizes")
+        # framing check (the marker-bit rule's per-lane analog, reference
+        # src/bitstream/stack_reader.rs:81-83): the dead bits above each
+        # lane's top bit must be zero
+        buf = np.frombuffer(sec, np.uint8, offset=2 * k)
+        last = buf[np.cumsum((sz + 7) >> 3) - 1].astype(np.int32)
+        if (last >> (((sz - 1) & 7) + 1)).any():
+            raise ValueError(f"block {i}: lane framing error")
+        sizes[j] = sz
+        payloads.append(sec[2 * k:])
+        norm_tables[j] = nt
+    W = -(-(int(sizes.max()) // 32 + 3) // 16) * 16
+
+    chunk = max(1, _cdiv(_CHUNK_RAW, raw_len))
+    for j0 in range(0, B, chunk):
+        words = PL.lane_split_batch(payloads[j0: j0 + chunk],
+                                    sizes[j0: j0 + chunk], k, W,
+                                    pack_bits=bool(pf.packed))
+        syms, finals = PL.decode_lanes_norm(
+            to_device(words, dev),
+            torch.from_numpy(sizes[j0: j0 + chunk]).to(dev),
+            norm_tables[j0: j0 + chunk], k=k, L=log2, R=R)
+        syms, finals = syms.cpu().numpy(), finals.cpu().numpy()
+        for jj in range(syms.shape[0]):
+            o = items[j0 + jj][0] * pf.block_size - out_base
+            out[o: o + R * k] = syms[jj].reshape(-1)
+            out[o + R * k: o + raw_len] = finals[jj]
+
+
+def _decode_group(items, raw_len, log2, pf, out, out_base, dev):
+    """Decode shared-stream (MODE_FSE) blocks sharing one (raw_len, log2)
+    with ops.coder.decode_core."""
+    k = min(pf.k, raw_len)
+    B = len(items)
+    # payload words, padded to the group max (+ guard words)
+    max_bytes = max(len(p) for _, p, _ in items)
+    Wd = _cdiv(max_bytes, 4) + 2
+    words = np.zeros((B, Wd), np.uint32)
+    total_bits = np.zeros(B, np.int64)
+    norm_tables = np.zeros((B, 256), np.int32)
+    for j, (i, payload, nt) in enumerate(items):
+        buf = np.frombuffer(payload, np.uint8)
+        nz = np.flatnonzero(buf)
+        if nz.size == 0:
+            raise ValueError(f"block {i}: missing marker bit")
+        last = int(nz[-1])
+        marker = last * 8 + int(buf[last]).bit_length() - 1
+        if len(buf) * 8 - marker > 8:
+            raise ValueError(f"block {i}: framing error")
+        total_bits[j] = marker
+        pb = np.zeros(Wd * 4, np.uint8)
+        pb[: len(buf)] = buf
+        words[j] = pb.view(np.uint32)
+        norm_tables[j] = nt
+
+    packed = PL.require_native().build_decode_tables(norm_tables, log2)
+    m = raw_len - k
+    R = max(_cdiv(m, k), 1) + 1
+    syms, emit_count, finals, done, _c = decode_core(
+        torch.from_numpy(words.astype(np.int64)).to(dev),
+        torch.from_numpy(total_bits).to(dev), to_device(packed, dev),
+        k=k, L=log2, R=R)
+    if not bool(done.all()):
+        raise ValueError("decode did not terminate: corrupt frame")
+    if not bool((emit_count == m).all()):
+        raise ValueError("decoded length mismatch: corrupt frame")
+    syms = syms.cpu().numpy().reshape(B, -1)
+    finals = finals.cpu().numpy()
+    for j, (i, _, _) in enumerate(items):
+        o = i * pf.block_size - out_base
+        out[o: o + m] = syms[j, :m]
+        out[o + m: o + raw_len] = finals[j]

@@ -1,0 +1,100 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+The sources in ``entropy_coders_tpu_torch/csrc/*.cu`` have a plain C
+interface (no PyTorch headers), so they compile in seconds:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/entropy_coders_tpu_torch/<lib>.so csrc/*.cu
+
+The build runs at first use, on a machine with the CUDA toolkit, into
+``build/entropy_coders_tpu_torch/`` at the repository root. The library's
+name carries a hash of the sources and flags, so an edited source builds
+anew and an unchanged one loads the library already built. No binary is
+committed. ``python -m entropy_coders_tpu_torch.kernels.build`` builds and
+prints the compiler's register and shared-memory report.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "entropy_coders_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# ctypes signatures of the launchers: every pointer and the stream are
+# c_void_p (a plain int would be cut to 32 bits), every size a c_int.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # words, sizes, dtab, syms, finals, cursors, B, W, k, L, R, stream
+    "ect_pl_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # blocks, tt_bits, tt_fs, next_state, words, sizes, B, k, L, R, W, stream
+    "ect_pl_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+# what the build in this process cost and what the compiler reported;
+# stays (None, "") when the library was already built
+last_build = {"seconds": None, "log": ""}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libect_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless their library exists; return its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    last_build["seconds"] = time.perf_counter() - t0
+    last_build["log"] = r.stderr
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built at first use and loaded once."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+if __name__ == "__main__":
+    print(build())
+    print(last_build["log"])

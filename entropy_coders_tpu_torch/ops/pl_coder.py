@@ -1,0 +1,365 @@
+"""Per-lane-stream tANS encode/decode (MODE_FSE_PL), PyTorch + CUDA.
+
+Counterpart of ``entropy_coders_tpu/ops/pl_coder.py``. Each of k lanes owns
+its own bit stream: lane i of a block codes the bytes {i, i+k, i+2k, ...} as
+exactly a reference-format single-stream FSE payload (reversed LSB-first bit
+stack, the initial state folding the lane's last byte, the final state in
+table_log bits). Bit j of a lane's stream lives in word j >> 5 at position
+j & 31 of the lane's word column, as in the JAX package.
+
+Two kernels carry the path, each behind a wrapper that checks its inputs:
+
+* ``decode_lanes`` -> B1, ``csrc/pl_decode.cu`` (replaces ``_decode_kernel``);
+* ``encode_lanes`` -> B2, ``csrc/pl_encode.cu`` (replaces ``_encode_kernel``).
+
+A wrapper launches its kernel for CUDA tensors and raises if it cannot. For
+CPU tensors it runs the plain PyTorch version (``decode_lanes_ref`` /
+``encode_lanes_ref``): vectorised over (B, k), a Python loop over rounds,
+int64 throughout. The plain versions are the oracle the kernels are held
+against on the card. ``DECODE_LAUNCHES``/``ENCODE_LAUNCHES`` count kernel
+launches, so a run can show that its path went through the kernels.
+
+Tables are flat (``tables_from_norm``), built on the host by the C++ library
+of the JAX package (``entropy_coders_tpu.native``), bit-identical to
+``spec``. None of the TPU's gather-row layouts, epochs or fusion carry over:
+they change no wire byte.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .unsigned import as_int64, int64_to_u32, to_device
+
+__all__ = [
+    "DECODE_LAUNCHES",
+    "ENCODE_LAUNCHES",
+    "LaneTables",
+    "decode_lanes",
+    "decode_lanes_norm",
+    "decode_lanes_ref",
+    "encode_lanes",
+    "encode_lanes_norm",
+    "encode_lanes_ref",
+    "encode_w_bound",
+    "lane_merge_batch",
+    "lane_split_batch",
+    "require_native",
+    "tables_from_norm",
+]
+
+DECODE_LAUNCHES = 0  # B1 launches since import (or since a caller reset it)
+ENCODE_LAUNCHES = 0  # B2 launches
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def require_native():
+    """The JAX package's C++ host library (table builds, header I/O, lane
+    repack). The port has no numpy fallback for it: raise with its load
+    error when it cannot be built or loaded."""
+    from entropy_coders_tpu import native
+
+    if not native.available():
+        raise RuntimeError(f"native codec unavailable: {native._load_error}")
+    return native
+
+
+# ---------------------------------------------------------------------------
+# Tables
+# ---------------------------------------------------------------------------
+
+
+class LaneTables(NamedTuple):
+    """Flat per-block tables on one device (B blocks sharing table log L)."""
+    dec: torch.Tensor         # (B, 2^L) uint32: sym << 24 | nb << 16 | base
+    tt_bits: torch.Tensor     # (B, 256) uint32 symbol-transform bits
+    tt_fs: torch.Tensor       # (B, 256) int32 symbol-transform find_state
+    next_state: torch.Tensor  # (B, 2^L) uint16 encode next-state table
+
+
+def tables_from_norm(norm_tables: np.ndarray, L: int, device) -> LaneTables:
+    """(B, 256) int32 normalized histograms sharing table log ``L`` -> the
+    flat decode and encode tables on ``device``, built by
+    ``native.build_{encode,decode}_tables`` (what the JAX host-table route
+    feeds its kernels, ``pl_coder.py:775-778, 931``)."""
+    native = require_native()
+    nt = np.ascontiguousarray(norm_tables, np.int32)
+    table, tt_bits, tt_fs = native.build_encode_tables(nt, int(L))
+    dec = native.build_decode_tables(nt, int(L))
+    return LaneTables(to_device(dec, device), to_device(tt_bits, device),
+                      to_device(tt_fs, device), to_device(table, device))
+
+
+def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, want {tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, want {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, want {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(fn, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+
+
+# ---------------------------------------------------------------------------
+# Decode: B1 and its plain version
+# ---------------------------------------------------------------------------
+
+
+def _read_bits(words: torch.Tensor, c: torch.Tensor, nb) -> torch.Tensor:
+    """Bits [c, c + nb) of every lane's stream, nb <= 16. ``words`` is the
+    (B, W, k) int64 word array; rows outside [0, W) read as zero (a corrupt
+    stream's cursor can go negative)."""
+    W = words.shape[1]
+    row = c >> 5  # floor, also for negative cursors
+    off = c & 31
+
+    def word(r):
+        ok = (r >= 0) & (r < W)
+        g = torch.gather(words, 1, r.clamp(0, W - 1).unsqueeze(1)).squeeze(1)
+        return torch.where(ok, g, 0)
+
+    # only the next word's low 16 bits can reach an nb <= 16 read
+    v = (word(row) >> off) | ((word(row + 1) & 0xFFFF) << (32 - off))
+    return v & ((torch.ones_like(c) << nb) - 1)
+
+
+def decode_lanes_ref(words, sizes, dec, *, L: int, R: int):
+    """Plain PyTorch version of B1 (same inputs and outputs as
+    ``decode_lanes``), vectorised over (B, k), a loop over R rounds."""
+    B, W, k = words.shape
+    w = as_int64(words)
+    tab = as_int64(dec)
+    mask_L = (1 << L) - 1
+    c = sizes.to(torch.int64) - L
+    state = _read_bits(w, c, L) & mask_L
+    syms = torch.empty((B, R, k), dtype=torch.uint8, device=words.device)
+    for r in range(R):
+        e = torch.gather(tab, 1, state)
+        nb = (e >> 16) & 0xFF
+        c = c - nb
+        state = ((e & 0xFFFF) + _read_bits(w, c, nb)) & mask_L
+        syms[:, r] = (e >> 24).to(torch.uint8)
+    finals = (torch.gather(tab, 1, state) >> 24).to(torch.uint8)
+    return syms, finals, c.to(torch.int32)
+
+
+def decode_lanes(words, sizes, dec, *, L: int, R: int):
+    """Decode B blocks of k per-lane streams (B1's wrapper).
+
+    words: (B, W, k) uint32 lane words (rows past the streams zero).
+    sizes: (B, k) int32 per-lane stream lengths in bits.
+    dec: (B, 2^L) uint32 decode entries (``LaneTables.dec``).
+    Returns (syms (B, R, k) uint8, finals (B, k) uint8, cursors (B, k)
+    int32): every cursor of a well-formed stream ends at 0.
+
+    CUDA tensors launch B1 (and raise if the launch fails); CPU tensors run
+    ``decode_lanes_ref``."""
+    global DECODE_LAUNCHES
+    if words.dim() != 3:
+        raise ValueError(f"words must be (B, W, k), got {tuple(words.shape)}")
+    B, W, k = words.shape
+    dev = words.device
+    if k % 128:
+        raise ValueError(f"k={k} must be a multiple of 128")
+    if not 5 <= L <= 15 or R < 0:
+        raise ValueError(f"bad table log {L} or round count {R}")
+    _check(words, "words", (B, W, k), torch.uint32, dev)
+    _check(sizes, "sizes", (B, k), torch.int32, dev)
+    _check(dec, "dec", (B, 1 << L), torch.uint32, dev)
+    if dev.type == "cpu":
+        return decode_lanes_ref(words, sizes, dec, L=L, R=R)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    syms = torch.empty((B, R, k), dtype=torch.uint8, device=dev)
+    finals = torch.empty((B, k), dtype=torch.uint8, device=dev)
+    cursors = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0:
+        return syms, finals, cursors
+    from ..kernels.build import load
+
+    lib = load()
+    with torch.cuda.device(dev):
+        _launch(lib.ect_pl_decode, words.data_ptr(), sizes.data_ptr(),
+                dec.data_ptr(), syms.data_ptr(), finals.data_ptr(),
+                cursors.data_ptr(), B, W, k, L, R,
+                torch.cuda.current_stream(dev).cuda_stream)
+    DECODE_LAUNCHES += 1
+    return syms, finals, cursors
+
+
+def decode_lanes_norm(words, sizes, norm_tables, *, k: int, L: int, R: int):
+    """Batched decode from lane words and the (B, 256) int32 normalized
+    histograms (all sharing table log ``L``), tables built by
+    ``tables_from_norm`` on the words' device. words (B, W, k) uint32 and
+    sizes (B, k) int32 tensors in; (syms (B, R, k) uint8, finals (B, k)
+    uint8) out, on the same device. Raises ValueError on a corrupt stream
+    (any lane cursor not exactly drained)."""
+    if words.dim() != 3 or words.shape[2] != k:
+        raise ValueError("k must match words (B, W, k)")
+    tables = tables_from_norm(norm_tables, L, words.device)
+    syms, finals, cursors = decode_lanes(words, sizes, tables.dec, L=L, R=R)
+    if bool((cursors != 0).any()):
+        raise ValueError("corrupt stream: lane cursor not drained")
+    return syms, finals
+
+
+# ---------------------------------------------------------------------------
+# Encode: B2 and its plain version
+# ---------------------------------------------------------------------------
+
+
+def encode_w_bound(R: int, L: int) -> int:
+    """Worst-case word rows per lane: R rounds of <= L bits each plus the
+    final L-bit state (new_first_symbol emits no bits), plus 2 guard rows,
+    rounded up to 8 rows (the JAX package's layout; the value is kept so
+    that both packages allocate the same words)."""
+    return _cdiv(_cdiv(R * L + L, 32) + 2, 8) * 8
+
+
+def encode_lanes_ref(blocks, tables: LaneTables, *, k: int, L: int, W: int):
+    """Plain PyTorch version of B2 (same inputs and outputs as
+    ``encode_lanes``), vectorised over (B, k), a loop over R rounds. Bits
+    go into the int64 word array by add: every bit position is written
+    once, so add is exact."""
+    B, n = blocks.shape
+    R = n // k - 1
+    dev = blocks.device
+    x = blocks.reshape(B, R + 1, k).to(torch.int64)
+    tb_t = as_int64(tables.tt_bits)
+    fs_t = tables.tt_fs.to(torch.int64)
+    nxt = as_int64(tables.next_state)
+    mask_L = (1 << L) - 1
+
+    def put(words, c, val):
+        # val < 2^16 at bit c: low part into row c >> 5, the rest into the
+        # next row; rows past W are dropped, as the kernel drops them
+        row = c >> 5
+        off = c & 31
+        for r, v in ((row, (val << off) & 0xFFFFFFFF), (row + 1, val >> (32 - off))):
+            ok = r < W
+            words.scatter_add_(1, r.clamp(max=W - 1).unsqueeze(1),
+                               torch.where(ok, v, 0).unsqueeze(1))
+
+    sym = x[:, R]
+    tb = torch.gather(tb_t, 1, sym)
+    bits_out = (tb >> 16) + 1
+    value0 = (bits_out << 16) - tb
+    state = torch.gather(nxt, 1, ((value0 >> bits_out)
+                                  + torch.gather(fs_t, 1, sym)) & mask_L)
+    words = torch.zeros((B, W, k), dtype=torch.int64, device=dev)
+    c = torch.zeros((B, k), dtype=torch.int64, device=dev)
+    for r in range(R - 1, -1, -1):
+        sym = x[:, r]
+        tb = torch.gather(tb_t, 1, sym)
+        bits_out = (tb + state) >> 16
+        put(words, c, state & ((torch.ones_like(bits_out) << bits_out) - 1))
+        c = c + bits_out
+        state = torch.gather(nxt, 1, ((state >> bits_out)
+                                      + torch.gather(fs_t, 1, sym)) & mask_L)
+    put(words, c, state & mask_L)
+    return int64_to_u32(words), (c + L).to(torch.int32)
+
+
+def encode_lanes(blocks, tables: LaneTables, *, k: int, L: int, W: int):
+    """Encode B blocks of k per-lane streams (B2's wrapper).
+
+    blocks: (B, (R+1)*k) uint8 raw block bytes; row r of lane i is byte
+      r*k + i, and row R (each lane's last byte) folds into the initial
+      state.
+    tables: ``LaneTables`` for the B blocks at table log ``L``.
+    W: word rows to allocate (``encode_w_bound(R, L)``).
+    Returns (words (B, W, k) uint32, sizes (B, k) int32 bit counts).
+
+    CUDA tensors launch B2 (and raise if the launch fails); CPU tensors run
+    ``encode_lanes_ref``."""
+    global ENCODE_LAUNCHES
+    if blocks.dim() != 2:
+        raise ValueError(f"blocks must be (B, n), got {tuple(blocks.shape)}")
+    B, n = blocks.shape
+    dev = blocks.device
+    if k % 128 or n % k or n // k < 2:
+        raise ValueError(f"k={k} must be a multiple of 128 dividing n={n} "
+                         "into >= 2 rows")
+    if not 5 <= L <= 15:
+        raise ValueError(f"bad table log {L}")
+    R = n // k - 1
+    if W < _cdiv((R + 1) * L, 32):
+        raise ValueError(f"W={W} rows cannot hold R={R} rounds at L={L}")
+    _check(blocks, "blocks", (B, n), torch.uint8, dev)
+    _check(tables.tt_bits, "tt_bits", (B, 256), torch.uint32, dev)
+    _check(tables.tt_fs, "tt_fs", (B, 256), torch.int32, dev)
+    _check(tables.next_state, "next_state", (B, 1 << L), torch.uint16, dev)
+    if dev.type == "cpu":
+        return encode_lanes_ref(blocks, tables, k=k, L=L, W=W)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    words = torch.zeros((B, W, k), dtype=torch.int32, device=dev).view(
+        torch.uint32)
+    sizes = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0:
+        return words, sizes
+    from ..kernels.build import load
+
+    lib = load()
+    with torch.cuda.device(dev):
+        _launch(lib.ect_pl_encode, blocks.data_ptr(),
+                tables.tt_bits.data_ptr(), tables.tt_fs.data_ptr(),
+                tables.next_state.data_ptr(), words.data_ptr(),
+                sizes.data_ptr(), B, k, L, R, W,
+                torch.cuda.current_stream(dev).cuda_stream)
+    ENCODE_LAUNCHES += 1
+    return words, sizes
+
+
+def encode_lanes_norm(blocks, norm_tables, *, k: int, L: int, W: int):
+    """Batched encode from raw blocks (B, n) uint8 with n = (R+1)*k and the
+    (B, 256) int32 normalized histograms (all sharing table log ``L``),
+    tables built by ``tables_from_norm`` on the blocks' device.
+    Returns (words (B, w_act, k) uint32, sizes (B, k) int32) on that
+    device: ``w_act`` is the JAX package's count of populated rows,
+    ``min(ceil((max(sizes) // 32 + 2) / 16) * 16, W)``."""
+    B = blocks.shape[0]
+    tables = tables_from_norm(norm_tables, L, blocks.device)
+    words, sizes = encode_lanes(blocks, tables, k=k, L=L, W=W)
+    if B == 0:
+        return words[:, :0], sizes
+    w_act = min(_cdiv(int(sizes.max()) // 32 + 2, 16) * 16, W)
+    return words[:, :w_act], sizes
+
+
+# ---------------------------------------------------------------------------
+# Host-side lane split/merge (wire <-> padded (W, k) layout), C++ only
+# ---------------------------------------------------------------------------
+
+
+def lane_merge_batch(words: np.ndarray, sizes_bits: np.ndarray,
+                     pack_bits: bool = False) -> list[bytes]:
+    """Batched lane merge of a block group: ``words (B, W, k)`` uint32,
+    ``sizes_bits (B, k)`` -> one wire payload per block (byte-aligned lanes,
+    or bit-packed with ``pack_bits``), in one OpenMP-parallel native call."""
+    return require_native().lane_merge_batch(np.asarray(words),
+                                             np.asarray(sizes_bits),
+                                             pack_bits)
+
+
+def lane_split_batch(payloads, sizes_bits: np.ndarray, k: int, W: int,
+                     pack_bits: bool = False) -> np.ndarray:
+    """Inverse of ``lane_merge_batch``: the group's ``(B, W, k)`` uint32
+    kernel layout from its wire payloads, in one native call."""
+    return require_native().lane_split_batch(payloads, np.asarray(sizes_bits),
+                                             k, W, pack_bits)
