@@ -8,6 +8,29 @@ It builds the CUDA kernels from ``entropy_coders_tpu_torch/csrc``, holds
 each one against its plain PyTorch version on the card, then drives the
 port's ``compress``/``decompress`` on ``device="cuda"`` through every golden
 container frame and three 128 MiB operating points, and times the kernels.
+Then it drives the multi-device path (``entropy_coders_tpu_torch.parallel``):
+
+* ``ring``: the ring kernel (B3) against its plain version on virtual
+  ranks, a mesh that names ``cuda:0`` n times, for n in {2, 3, 8}: int32
+  and float32 chunks and the histogram all-reduce of the 128 MiB data's
+  counts, every rank's output and accumulator compared exactly; then
+  ``ring_all_gather`` at n = 8 of the throughput point's lane words, one
+  (264, 16384) u32 block per rank, timed against the plain version. Peer
+  ranks (distinct GPUs) run the same cases, and a timed full-width ring,
+  when the machine has two cards or more.
+* ``sharded``: the throughput point through ``parallel.compress`` /
+  ``decompress`` on ``default_mesh()`` and on eight virtual ranks, and 5
+  blocks over 8 ranks: each frame equals ``compress``'s, byte for byte,
+  and round-trips; with ``shared_table=True`` the sharded histogram, the
+  ring's all-reduce of the per-rank counts and ``np.bincount`` agree, and
+  the header they normalise to is the one the frame carries.
+* ``multihost``: two worker processes on the card (this script run with
+  ``--multihost-worker``, gloo on 127.0.0.1) compress and decompress the
+  128 MiB data through ``parallel.multihost``, plain and with
+  ``shared_table``, ``bit_pack`` and ``checksum``; each prints the frames'
+  sha256, which must equal the single-process frames', its owned range
+  (``assemble=False``) and its own kernel launch counts.
+
 Each phase prints one JSON line. The line before the last lists the
 kernels; the last line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed. Any failure exits non-zero without it, as does a
@@ -22,6 +45,7 @@ from __future__ import annotations
 import hashlib
 import importlib.util
 import json
+import socket
 import statistics
 import subprocess
 import sys
@@ -36,6 +60,12 @@ BENCH_SEED = 0xF5E
 THROUGHPUT_BYTES = 61_729_231  # 16 MiB blocks, k=16384, table_log 8
 PARITY_BYTES = 60_779_273      # k=8192, table_log 11, bit_pack
 REFERENCE_RATIO = 0.4530       # the reference Rust frame on this corpus
+BLOCK = 16 * MIB
+THROUGHPUT = dict(block_size=BLOCK, k=16384, table_log=8, lanes=True)
+MULTIHOST_LEGS = {"plain": {},
+                  "shared": dict(shared_table=True, bit_pack=True,
+                                 checksum=True)}
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's published peak
 
 
 class SmokeFailure(Exception):
@@ -79,6 +109,28 @@ def cuda_ms(fn, runs: int = 7, warmup: int = 2):
     return statistics.median(times), times
 
 
+def host_ms(fn, devices, runs: int = 7, warmup: int = 2):
+    """Median host-clock time of ``fn`` in ms, every device in ``devices``
+    synchronised before and after each run (work on several cards, which
+    one card's events cannot bracket)."""
+    import torch
+
+    def sync():
+        for d in dict.fromkeys(devices):
+            torch.cuda.synchronize(d)
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
 def max_abs_diff(a, b) -> int:
     """Largest |a - b| over two integer tensors of one shape (any int
     type, compared by value)."""
@@ -102,14 +154,16 @@ def phase_env():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    cards = smi.stdout.strip().splitlines()
+    card = cards[0] if cards else ""
     print(card, flush=True)  # the card's name and power limit, as-is
     t0 = time.perf_counter()
     KB.load()
     load_s = time.perf_counter() - t0
     print(KB.last_build["log"], file=sys.stderr, flush=True)
     check(native.available(), "native host library unavailable")
-    emit("env", card=card, torch=torch.__version__, cuda=torch.version.cuda,
+    emit("env", card=card, cards=cards, torch=torch.__version__,
+         cuda=torch.version.cuda,
          python=sys.version.split()[0],
          kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(),
@@ -319,6 +373,382 @@ def phase_timing(data):
     return out
 
 
+# --- the multi-device path ----------------------------------------------------
+
+
+def _bits(t):
+    """Integer view of a tensor for exact comparison (4-byte types as
+    int32 bit patterns, so float32 compares bit for bit)."""
+    import torch
+
+    return t.view(torch.int32) if t.element_size() == 4 else t
+
+
+def ring_case(shards, mesh, accumulate=False):
+    """B3 and its plain version on the same shards: every rank's output
+    and accumulator must agree exactly and equal the stacked shards / their
+    sum. Returns the largest difference."""
+    import torch
+
+    from entropy_coders_tpu_torch.parallel import rdma as R
+
+    outs, accs = R._ring_call(shards, mesh, accumulate)
+    routs, raccs = R._ring_call_ref(shards, mesh, accumulate)
+    torch.cuda.synchronize()
+    want = torch.stack([_bits(s).to(mesh[0]) for s in shards])
+    err = 0
+    for d in range(len(mesh)):
+        err = max(err, max_abs_diff(_bits(outs[d]), _bits(routs[d])))
+        check(torch.equal(_bits(outs[d]).to(mesh[0]), want),
+              f"rank {d} output != the stacked shards (n={len(mesh)})")
+        if accumulate:
+            err = max(err, max_abs_diff(accs[d], raccs[d]))
+            total = want.to(torch.int64).sum(0)
+            total = (((total + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(
+                torch.int32)
+            check(torch.equal(accs[d].to(mesh[0]), total),
+                  f"rank {d} accumulator != the sum (n={len(mesh)})")
+    check(err == 0, f"B3 != plain version (n={len(mesh)}): {err}")
+    return err
+
+
+def ring_cases(mesh, rank_counts):
+    """The ring's three cases on one mesh: int32 (n*2, 4, 128), float32
+    (n, 8, 128) and the histogram all-reduce of ``rank_counts`` (n, 256)."""
+    import numpy as np
+    import torch
+
+    from entropy_coders_tpu_torch.parallel import rdma as R
+
+    n = len(mesh)
+    rng = np.random.default_rng(BENCH_SEED + n)
+    x = torch.from_numpy(rng.integers(0, 1 << 30, (n * 2, 4, 128)).astype(
+        np.int32))
+    f = torch.from_numpy(rng.standard_normal((n, 8, 128)).astype(np.float32))
+    err = 0
+    for t, acc in ((x, False), (x, True), (f, False)):
+        shards = [s.to(d).contiguous() for s, d in zip(t.tensor_split(n), mesh)]
+        err = max(err, ring_case(shards, mesh, acc))
+    check(torch.equal(R.ring_all_gather(x, mesh).cpu(), x),
+          f"ring_all_gather != x (n={n})")
+    counts = torch.from_numpy(rank_counts.astype(np.int32))
+    shards = [c.reshape(2, 128).to(d).contiguous()
+              for c, d in zip(counts, mesh)]
+    err = max(err, ring_case(shards, mesh, True))
+    total = R.ring_all_reduce_histograms(rank_counts, mesh).cpu().numpy()
+    check((total == rank_counts.sum(0)).all(),
+          f"ring_all_reduce_histograms != the sum (n={n})")
+    return err
+
+
+def rank_counts(blocks_dev, n):
+    """(n, 256) int64 byte counts of each rank's contiguous share of the
+    device-resident blocks."""
+    import numpy as np
+
+    from entropy_coders_tpu_torch.frame import _shares
+    from entropy_coders_tpu_torch.ops.histogram import histogram_blocks
+
+    out = np.zeros((n, 256), np.int64)
+    for i, (_, lo, hi) in enumerate(_shares(blocks_dev.shape[0], (None,) * n)):
+        out[i] = histogram_blocks(blocks_dev[lo:hi]).sum(0).cpu().numpy()
+    return out
+
+
+def phase_ring(data):
+    import numpy as np
+    import torch
+
+    from entropy_coders_tpu.normalize import normalize_batch
+    from entropy_coders_tpu_torch.ops import pl_coder as PL
+    from entropy_coders_tpu_torch.parallel import rdma as R
+
+    dev = torch.device("cuda", 0)
+    blocks_np = data.reshape(-1, BLOCK)
+    blocks = torch.from_numpy(blocks_np).to(dev)
+    bincount = np.bincount(data, minlength=256)
+    cases, worst = {}, 0
+    for n in (2, 3, 8):
+        counts = rank_counts(blocks, n)
+        check((counts.sum(0) == bincount).all(), "rank counts != bincount")
+        err = ring_cases((dev,) * n, counts)
+        cases[f"virtual_{n}"] = {"max_abs_err": err}
+        worst = max(worst, err)
+
+    # full width: n = 8 ranks, each one (264, 16384) u32 block of the
+    # throughput point's B2 lane words
+    L, k = 8, 16384
+    nt, l2 = normalize_batch(np.stack([np.bincount(b, minlength=256)
+                                       for b in blocks_np]), BLOCK, L)
+    check((l2 == L).all(), f"table log raised to {l2}")
+    W = PL.encode_w_bound(BLOCK // k - 1, L)
+    words, _ = PL.encode_lanes(blocks, PL.tables_from_norm(nt, L, dev), k=k,
+                               L=L, W=W)
+    mesh = (dev,) * 8
+    shards = list(words.unbind(0))
+    worst = max(worst, ring_case(shards, mesh))
+    gathered = R.ring_all_gather(words, mesh)
+    check(torch.equal(_bits(gathered), _bits(words)),
+          "ring_all_gather of the lane words != the words")
+    ms, all_ms = cuda_ms(lambda: R._ring_call(shards, mesh))
+    plain_ms, plain_all = cuda_ms(lambda: R._ring_call_ref(shards, mesh))
+    chunk = shards[0].numel() * 4
+    moved = 2 * 8 * 8 * chunk  # seed + 7 hops, a read and a write each, x 8
+    full = {"n": 8, "chunk_shape": list(shards[0].shape),
+            "chunk_bytes": chunk, "bytes_moved": moved, "ms": ms,
+            "ms_runs": all_ms, "plain_ms": plain_ms, "plain_ms_runs": plain_all,
+            "GBps": moved / ms / 1e6, "plain_GBps": moved / plain_ms / 1e6,
+            "hbm_bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "hbm_share": moved / HBM_BYTES_PER_S * 1e3 / ms}
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        peer = {}
+        for n in sorted({2, min(count, 8)}):
+            pmesh = tuple(torch.device("cuda", i) for i in range(n))
+            err = ring_cases(pmesh, rank_counts(blocks, n))
+            peer[f"peer_{n}"] = {"max_abs_err": err}
+            worst = max(worst, err)
+        # full width on n distinct cards: each rank sends n-1 chunks over
+        # NVLink (450 GB/s each way); host clock, every card synchronised
+        pshards = [shards[i].to(d) for i, d in enumerate(pmesh)]
+        worst = max(worst, ring_case(pshards, pmesh))
+        ms_p, runs_p = host_ms(lambda: R._ring_call(pshards, pmesh), pmesh)
+        plain_p, plain_runs_p = host_ms(
+            lambda: R._ring_call_ref(pshards, pmesh), pmesh)
+        peer["full_width"] = {
+            "n": n, "ms": ms_p, "ms_runs": runs_p, "plain_ms": plain_p,
+            "plain_ms_runs": plain_runs_p,
+            "nvlink_bound_ms": (n - 1) * chunk / 450e9 * 1e3,
+            "clock": "host, all cards synchronised"}
+    else:
+        peer = "not run: 1 device"
+    emit("ring", cases=cases, full_width=full, peer=peer, max_abs_err=worst)
+    return worst, full
+
+
+def phase_sharded(T, data, single_frame):
+    """The throughput point through parallel.compress/decompress."""
+    import numpy as np
+    import torch
+
+    from entropy_coders_tpu_torch import frame as TF
+    from entropy_coders_tpu_torch import parallel as P
+    from entropy_coders_tpu_torch.parallel import rdma as R
+
+    dev = torch.device("cuda", 0)
+    virtual8 = (dev,) * 8
+    out = {}
+    for name, mesh in (("default_mesh", P.default_mesh()),
+                       ("virtual_8", virtual8)):
+        times = {}
+        for tag in ("cold", "warm"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame = P.compress(data, mesh, **THROUGHPUT)
+            times[f"compress_s_{tag}"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = P.decompress(frame, mesh)
+            torch.cuda.synchronize()
+            times[f"decompress_s_{tag}"] = time.perf_counter() - t0
+            check(back == data.tobytes(), f"sharded round trip ({name})")
+        check(len(frame) == THROUGHPUT_BYTES,
+              f"sharded frame ({name}) is {len(frame)} bytes")
+        check(frame == single_frame, f"sharded frame ({name}) != compress's")
+        out[name] = {"ranks": len(mesh), "frame_bytes": len(frame),
+                     "compress_GBps": len(data) / times["compress_s_warm"] / 1e9,
+                     "decompress_GBps":
+                         len(data) / times["decompress_s_warm"] / 1e9,
+                     **times}
+
+    five = data[: 5 * BLOCK]
+    frame5 = P.compress(five, virtual8, **THROUGHPUT)
+    check(frame5 == T.compress(five, device="cuda", **THROUGHPUT),
+          "5 blocks over 8 ranks: frame != compress's")
+    check(P.decompress(frame5, virtual8) == five.tobytes(),
+          "5 blocks over 8 ranks: round trip")
+    check(P.decompress(frame5, virtual8, start=BLOCK + 7, length=2 * BLOCK)
+          == five[BLOCK + 7: 3 * BLOCK + 7].tobytes(), "sharded range decode")
+
+    hist = P.sharded_histogram(data.reshape(-1, BLOCK), virtual8)
+    hist = hist.cpu().numpy()
+    check((hist == np.bincount(data, minlength=256)).all(),
+          "sharded_histogram != np.bincount")
+    counts = rank_counts(torch.from_numpy(data.reshape(-1, BLOCK)).to(dev), 8)
+    ring_total = R.ring_all_reduce_histograms(counts, virtual8).cpu().numpy()
+    check((ring_total == hist).all(),
+          "ring_all_reduce_histograms != sharded_histogram")
+    s = TF.resolve_shared_table(ring_total, len(data), THROUGHPUT["table_log"],
+                                True)
+    t0 = time.perf_counter()
+    shared = P.compress(data, virtual8, shared_table=True, **THROUGHPUT)
+    shared_s = time.perf_counter() - t0
+    check(TF._parse_frame(shared).shared_hdr == TF._write_header(*s),
+          "shared header != the normalised ring total")
+    check(P.decompress(shared, virtual8) == data.tobytes(),
+          "sharded shared-table round trip")
+    emit("sharded", meshes=out, five_blocks_bytes=len(frame5),
+         shared_frame_bytes=len(shared), shared_compress_s=shared_s,
+         shared_log2=s[1])
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_multihost(expected):
+    """Two worker processes through parallel.multihost; ``expected`` maps
+    each leg to the sha256 of its single-process frame."""
+    port, num = _free_port(), 2
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--multihost-worker",
+         str(port), str(num), str(i)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for i in range(num)]
+    results = []
+    try:
+        for i, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"multihost worker {i} timed out")
+            if p.returncode != 0:
+                raise SmokeFailure(f"multihost worker {i} failed "
+                                   f"({p.returncode}):\n{err[-4000:]}")
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r in results:
+        for leg, sha in expected.items():
+            check(r["legs"][leg]["sha256"] == sha,
+                  f"worker {r['rank']} {leg} frame != the single-process one")
+        check(r["launches"]["decode"] > 0 and r["launches"]["encode"] > 0,
+              f"worker {r['rank']} launched no kernel: {r['launches']}")
+    emit("multihost", processes=num, workers=results)
+
+
+def multihost_worker(port: int, num: int, rank: int) -> int:
+    """One process of the ``multihost`` phase: prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from entropy_coders_tpu_torch.ops import pl_coder as PL
+    from entropy_coders_tpu_torch.parallel import multihost as MH
+
+    MH.init_distributed(f"127.0.0.1:{port}", num, rank)
+    data = load_testdata().gen_sequence(0.2, BENCH_SIZE, BENCH_SEED)
+    n_blocks = len(data) // BLOCK
+    lo, hi = MH.owned_blocks(n_blocks)
+    PL.DECODE_LAUNCHES = 0
+    PL.ENCODE_LAUNCHES = 0
+    legs = {}
+    for leg, kw in MULTIHOST_LEGS.items():
+        t0 = time.perf_counter()
+        frame = MH.compress(data, **THROUGHPUT, **kw)
+        compress_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = MH.decompress(frame)
+        decompress_s = time.perf_counter() - t0
+        check(back == data.tobytes(), f"multihost {leg} round trip")
+        start, local = MH.decompress(frame, assemble=False)
+        check(start == lo * BLOCK and local == data[lo * BLOCK: hi * BLOCK]
+              .tobytes(), f"multihost {leg}: owned range differs")
+        legs[leg] = {"sha256": hashlib.sha256(frame).hexdigest(),
+                     "frame_bytes": len(frame), "compress_s": compress_s,
+                     "decompress_s": decompress_s}
+    print(json.dumps({"rank": rank,
+                      "device": str(MH._local_device(None, None)),
+                      "owned_blocks": [lo, hi], "legs": legs,
+                      "launches": {"decode": PL.DECODE_LAUNCHES,
+                                   "encode": PL.ENCODE_LAUNCHES}}),
+          flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_single(T, PL, gg, data):
+    """The single-device phases; returns the main path's launch counts,
+    the kernels' largest difference from their plain versions and the
+    one-block timings."""
+    worst = phase_kernels()
+
+    # the main path: every count starts at 0 here, and only the
+    # compress/decompress calls below add to it
+    PL.DECODE_LAUNCHES = 0
+    PL.ENCODE_LAUNCHES = 0
+    phase_goldens(T, gg)
+    phase_point(T, "throughput", data, THROUGHPUT_BYTES,
+                block_size=16 * MIB, k=16384, table_log=8, lanes=True)
+    ratio = phase_point(T, "parity", data, PARITY_BYTES,
+                        block_size=16 * MIB, k=8192, table_log=11,
+                        lanes=True, bit_pack=True)
+    check(ratio <= REFERENCE_RATIO, f"parity ratio {ratio} > "
+          f"{REFERENCE_RATIO}")
+    phase_default(T, gg.gen_sequence)
+    launches = {"decode": PL.DECODE_LAUNCHES,
+                "encode": PL.ENCODE_LAUNCHES}
+    check(launches["decode"] > 0 and launches["encode"] > 0,
+          f"a kernel of the main path never launched: {launches}")
+    emit("launches", **launches)
+
+    timing = phase_timing(data)
+    worst = max([worst] + [timing[p][s]["max_abs_err"]
+                           for p in timing for s in timing[p]])
+    return launches, worst, timing["throughput"]["one_block"]
+
+
+def run_parallel(T, PL, R, data):
+    """The multi-device phases (``ring``, ``sharded``, ``multihost``);
+    returns B3's largest difference, its full-width timing and the
+    multi-device path's launch counts."""
+    ring_err, ring_full = phase_ring(data)
+    single = T.compress(data, device="cuda", **THROUGHPUT)
+    expected = {leg: hashlib.sha256(
+        single if not kw else T.compress(data, device="cuda",
+                                         **THROUGHPUT, **kw)).hexdigest()
+        for leg, kw in MULTIHOST_LEGS.items()}
+    # the multi-device path: every count starts at 0 here, and only the
+    # parallel calls of phase_sharded add to it
+    PL.DECODE_LAUNCHES = 0
+    PL.ENCODE_LAUNCHES = 0
+    R.RING_LAUNCHES = 0
+    phase_sharded(T, data, single)
+    par = {"decode": PL.DECODE_LAUNCHES, "encode": PL.ENCODE_LAUNCHES,
+           "ring": R.RING_LAUNCHES}
+    check(min(par.values()) > 0,
+          f"a kernel of the multi-device path never launched: {par}")
+    emit("launches_parallel", **par)
+    phase_multihost(expected)
+    return ring_err, ring_full, par
+
+
+def print_kernels(launches, worst, one, ring_err, ring_full, par):
+    """The line before the last: every kernel with its main-path launches,
+    its largest difference from its plain version and its times."""
+    src = "entropy_coders_tpu_torch/csrc"
+    print(json.dumps({"kernels": [
+        {"name": "pl_decode (B1)", "route": "cuda",
+         "source": f"{src}/pl_decode.cu",
+         "replaces": "entropy_coders_tpu/ops/pl_coder.py:285",
+         "launches": launches["decode"], "max_abs_err": worst,
+         "ms": one["decode_ms"], "plain_ms": one["decode_plain_ms"]},
+        {"name": "pl_encode (B2)", "route": "cuda",
+         "source": f"{src}/pl_encode.cu",
+         "replaces": "entropy_coders_tpu/ops/pl_coder.py:1075",
+         "launches": launches["encode"], "max_abs_err": worst,
+         "ms": one["encode_ms"], "plain_ms": one["encode_plain_ms"]},
+        {"name": "ring_all_gather (B3)", "route": "cuda",
+         "source": f"{src}/ring.cu",
+         "replaces": "entropy_coders_tpu/parallel/rdma.py:46",
+         "launches": par["ring"], "max_abs_err": ring_err,
+         "ms": ring_full["ms"], "plain_ms": ring_full["plain_ms"]},
+    ]}), flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -331,52 +761,20 @@ def main() -> int:
     try:
         import entropy_coders_tpu_torch as T
         from entropy_coders_tpu_torch.ops import pl_coder as PL
+        from entropy_coders_tpu_torch.parallel import rdma as R
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        return multihost_worker(*map(int, sys.argv[2:5]))
     try:
         phase_env()
-        worst = phase_kernels()
         gg = load_testdata()
         data = gg.gen_sequence(0.2, BENCH_SIZE, BENCH_SEED)
-
-        # the main path: every count starts at 0 here, and only the
-        # compress/decompress calls below add to it
-        PL.DECODE_LAUNCHES = 0
-        PL.ENCODE_LAUNCHES = 0
-        phase_goldens(T, gg)
-        phase_point(T, "throughput", data, THROUGHPUT_BYTES,
-                    block_size=16 * MIB, k=16384, table_log=8, lanes=True)
-        ratio = phase_point(T, "parity", data, PARITY_BYTES,
-                            block_size=16 * MIB, k=8192, table_log=11,
-                            lanes=True, bit_pack=True)
-        check(ratio <= REFERENCE_RATIO, f"parity ratio {ratio} > "
-              f"{REFERENCE_RATIO}")
-        phase_default(T, gg.gen_sequence)
-        launches = {"decode": PL.DECODE_LAUNCHES,
-                    "encode": PL.ENCODE_LAUNCHES}
-        check(launches["decode"] > 0 and launches["encode"] > 0,
-              f"a kernel of the main path never launched: {launches}")
-        emit("launches", **launches)
-
-        timing = phase_timing(data)
-        worst = max([worst] + [timing[p][s]["max_abs_err"]
-                               for p in timing for s in timing[p]])
-        one = timing["throughput"]["one_block"]
-        src = "entropy_coders_tpu_torch/csrc"
-        print(json.dumps({"kernels": [
-            {"name": "pl_decode (B1)", "route": "cuda",
-             "source": f"{src}/pl_decode.cu",
-             "replaces": "entropy_coders_tpu/ops/pl_coder.py:285",
-             "launches": launches["decode"], "max_abs_err": worst,
-             "ms": one["decode_ms"], "plain_ms": one["decode_plain_ms"]},
-            {"name": "pl_encode (B2)", "route": "cuda",
-             "source": f"{src}/pl_encode.cu",
-             "replaces": "entropy_coders_tpu/ops/pl_coder.py:1075",
-             "launches": launches["encode"], "max_abs_err": worst,
-             "ms": one["encode_ms"], "plain_ms": one["encode_plain_ms"]},
-        ]}), flush=True)
+        launches, worst, one = run_single(T, PL, gg, data)
+        ring_err, ring_full, par = run_parallel(T, PL, R, data)
+        print_kernels(launches, worst, one, ring_err, ring_full, par)
     except Exception:  # report any failing phase, print no result
         traceback.print_exc()
         return 1

@@ -17,6 +17,14 @@ raises when CUDA is unavailable; ``device="cpu"`` runs the kernels' plain
 PyTorch versions. ``lanes=None`` resolves to the per-lane path on CUDA (the
 JAX package resolves it to its TPU backend). The chunks run one after the
 other: nothing overlaps the host merge with device work yet.
+
+``sharding`` (``parallel.block_sharding(mesh)``, the counterpart of the JAX
+package's ``NamedSharding`` over the block axis) spreads the block work over
+``sharding.mesh``, a tuple of devices in which a device may repeat (virtual
+ranks). The blocks of each table-log group split into one contiguous share
+per mesh entry; each share goes through the kernels on its own device and
+its sections land in block order. No share is padded, and the shares run
+one after the other. ``sharding`` changes no byte of the frame.
 """
 
 from __future__ import annotations
@@ -70,7 +78,45 @@ def _device(device) -> torch.device:
                            "device='cpu' for the plain PyTorch versions")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _mesh_devices(mesh) -> tuple[torch.device, ...]:
+    """A mesh (devices, one per rank; a device may repeat) checked as
+    ``_device`` checks one device: non-empty and of one device type."""
+    mesh = tuple(_device(d) for d in mesh)
+    if not mesh:
+        raise ValueError("empty mesh")
+    if len({d.type for d in mesh}) > 1:
+        raise ValueError(f"mesh mixes device types: {mesh}")
+    return mesh
+
+
+def _mesh(device, sharding) -> tuple[torch.device, ...]:
+    """The devices the block work runs on: ``sharding.mesh`` or, without a
+    sharding, ``device`` (default ``"cuda"``) alone. A ``device`` given
+    beside a sharding must name the mesh's devices."""
+    if sharding is None:
+        return (_device("cuda" if device is None else device),)
+    mesh = _mesh_devices(sharding.mesh)
+    if device is not None:
+        want = torch.device(device)
+        if any(d.type != want.type or want.index not in (None, d.index)
+               for d in mesh):
+            raise ValueError(f"device={want} contradicts the sharding's "
+                             f"mesh {mesh}")
+    return mesh
+
+
+def _shares(n_rows: int, mesh) -> list[tuple[torch.device, int, int]]:
+    """Contiguous balanced row ranges, one per mesh entry, as (device, lo,
+    hi); empty ones are left out (5 rows over 8 devices give 5 shares)."""
+    p = len(mesh)
+    bounds = [i * n_rows // p for i in range(p + 1)]
+    return [(d, bounds[i], bounds[i + 1]) for i, d in enumerate(mesh)
+            if bounds[i + 1] > bounds[i]]
 
 
 # --- shared-stream layout (ops.coder) ----------------------------------------
@@ -147,7 +193,8 @@ def compress(
     lanes: bool | None = None,
     checksum: bool = False,
     bit_pack: bool = False,
-    device="cuda",
+    device=None,
+    sharding=None,
 ) -> bytes:
     """Compress ``data`` into a container frame (FORMAT.md), byte-identical
     to ``entropy_coders_tpu.frame.compress`` with the same knobs.
@@ -162,10 +209,12 @@ def compress(
     FSE-compresses the lane-size table. ``shared_hist`` (with
     ``shared_table=True``) supplies a precomputed ``(norm_table, log2)``
     pair as the shared table. ``device`` is where the block work runs
-    (default ``"cuda"``, which raises when CUDA is unavailable)."""
-    dev = _device(device)
+    (default ``"cuda"``, which raises when CUDA is unavailable).
+    ``sharding`` spreads the block work over ``sharding.mesh`` (module
+    docstring); the ragged tail block runs on the mesh's first device."""
+    mesh = _mesh(device, sharding)
     if lanes is None:
-        lanes = dev.type == "cuda"
+        lanes = mesh[0].type == "cuda"
     if table_log is None:
         table_log = PL_TABLE_LOG if lanes else TABLE_LOG_DEFAULT
     data = (np.frombuffer(bytearray(data), np.uint8)
@@ -203,10 +252,12 @@ def compress(
     nsym = None
     if full:
         blocks = data[: full * block_size].reshape(full, block_size)
-        # one h2d for the whole input: the device copy feeds both the
-        # histogram and the lane encode kernel
-        blocks_dev = torch.from_numpy(blocks).to(dev)
-        counts = histogram_blocks(blocks_dev).cpu().numpy()
+        # one h2d per share of the mesh (one share without a sharding): the
+        # device copies feed both the histogram and the lane encode kernel
+        placed = [(lo, torch.from_numpy(blocks[lo:hi]).to(d))
+                  for d, lo, hi in _shares(full, mesh)]
+        counts = np.concatenate([histogram_blocks(t).cpu().numpy()
+                                 for _, t in placed])
         # single-symbol blocks can't be FSE-coded (the reference's
         # normalization rejects table_len == 1); they take the RLE escape
         nsym = (counts != 0).sum(axis=1)
@@ -219,18 +270,15 @@ def compress(
             else:
                 norm_tables, log2_arr = normalize_batch(
                     counts[codable], block_size, table_log)
-            all_rows = codable.size == full
-            _encode_group(
-                blocks if all_rows else blocks[codable],
-                norm_tables, log2_arr, k, shared_table, sections, modes,
-                codable, dev, lanes=lanes, bit_pack=bit_pack,
-                blocks_dev=(blocks_dev if all_rows else blocks_dev[
-                    torch.from_numpy(codable).to(dev)]))
+            _encode_group(blocks, norm_tables, log2_arr, k, shared_table,
+                          sections, modes, codable, mesh, lanes=lanes,
+                          placed=placed, bit_pack=bit_pack)
 
     if full * block_size < total_len:  # ragged tail block
         tail = data[full * block_size:]
         _encode_tail(tail, k, table_log, shared_table, s_shared, sections,
-                     modes, n_blocks - 1, dev, lanes=lanes, bit_pack=bit_pack)
+                     modes, n_blocks - 1, mesh[0], lanes=lanes,
+                     bit_pack=bit_pack)
 
     # RAW/RLE escapes where FSE did not win. Constant-block detection for
     # full blocks comes free from the device histogram (nsym == 1).
@@ -357,50 +405,71 @@ def _encode_group_pl(blocks_dev, norm_tables, l2, k, shared_table, sections,
             modes[block_ids[j]] = MODE_FSE_PL
 
 
+def _rows_on(dev, ids, blocks, placed):
+    """Blocks ``ids`` (sorted) of the host array ``blocks`` as one tensor on
+    ``dev``: a slice or gather of a device copy in ``placed`` ((first block,
+    tensor) pairs) that holds them all, else one h2d."""
+    for lo, t in placed:
+        if t.device == dev and lo <= ids[0] and ids[-1] < lo + t.shape[0]:
+            if ids[-1] - ids[0] + 1 == len(ids):
+                return t[ids[0] - lo: ids[-1] - lo + 1]
+            return t[torch.from_numpy(ids - lo).to(dev)]
+    return torch.from_numpy(np.ascontiguousarray(blocks[ids])).to(dev)
+
+
 def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
-                  modes, block_ids, dev, lanes=False, blocks_dev=None,
+                  modes, block_ids, mesh, lanes=False, placed=(),
                   bit_pack=False):
-    """Encode equal-size blocks, grouped by effective table log. With
-    ``lanes``, eligible groups take the per-lane path (reading
-    ``blocks_dev``, the device copy of ``blocks``, when the caller has one);
-    the others take the shared-stream path (ops.coder)."""
-    B, n = blocks.shape
+    """Encode equal-size blocks, grouped by effective table log: row j of
+    ``norm_tables``/``log2_arr`` codes block ``block_ids[j]`` of the host
+    array ``blocks`` into ``sections[block_ids[j]]``. Each group splits into
+    one contiguous share per entry of ``mesh``. With ``lanes``, eligible
+    groups take the per-lane path (reading the device copies in ``placed``
+    where they hold the share); the others take the shared-stream path
+    (ops.coder)."""
+    n = blocks.shape[1]
     layout = None  # shared-stream emission layout, built on first use
 
     for l2 in np.unique(log2_arr):
         rows = np.flatnonzero(log2_arr == l2)
-        if lanes and _pl_eligible(n, k, int(l2)):
-            src = (blocks_dev if blocks_dev is not None
-                   else torch.from_numpy(np.ascontiguousarray(blocks)).to(dev))
-            if len(rows) != B:
-                src = src[torch.from_numpy(rows).to(dev)]
-            _encode_group_pl(src, norm_tables[rows], int(l2), k,
-                             shared_table, sections, modes, block_ids[rows],
-                             bit_pack=bit_pack)
-            continue
-        if layout is None:
-            m, R, valid, finish_slots, W = _encode_layout(n, k)
-            syms, init_syms = _blocks_to_syms(blocks, m, R, k)
-            layout = True
-        table, tt_bits, tt_fs = PL.require_native().build_encode_tables(
-            norm_tables[rows], int(l2))
-        words, total_bits = encode_core(
-            torch.from_numpy(np.ascontiguousarray(syms[rows])).to(dev),
-            torch.from_numpy(valid).to(dev),
-            torch.from_numpy(np.ascontiguousarray(init_syms[rows])).to(dev),
-            torch.from_numpy(finish_slots).to(dev),
-            (to_device(table, dev), to_device(tt_bits, dev),
-             to_device(tt_fs, dev)),
-            k=k, L=int(l2), W=W)
-        words = words.cpu().numpy().astype(np.uint32)
-        total_bits = total_bits.cpu().numpy()
-        for j, r in enumerate(rows):
-            payload = words[j].tobytes()[: (int(total_bits[j]) + 7) // 8]
-            if shared_table:
-                sections[block_ids[r]] = payload
+        pl = lanes and _pl_eligible(n, k, int(l2))
+        if not pl and layout is None:
+            layout = _encode_layout(n, k)
+        for dev, lo, hi in _shares(len(rows), mesh):
+            ids = block_ids[rows[lo:hi]]
+            if pl:
+                _encode_group_pl(_rows_on(dev, ids, blocks, placed),
+                                 norm_tables[rows[lo:hi]], int(l2), k,
+                                 shared_table, sections, modes, ids,
+                                 bit_pack=bit_pack)
             else:
-                sections[block_ids[r]] = (
-                    _write_header(norm_tables[r], int(l2)) + payload)
+                _encode_group_fse(blocks[ids], norm_tables[rows[lo:hi]],
+                                  int(l2), k, shared_table, sections, ids,
+                                  dev, layout)
+
+
+def _encode_group_fse(blocks, norm_tables, l2, k, shared_table, sections,
+                      block_ids, dev, layout):
+    """Shared-stream (MODE_FSE) encode of the host blocks (B, n) sharing
+    table log ``l2`` on ``dev`` (ops.coder.encode_core)."""
+    m, R, valid, finish_slots, W = layout
+    syms, init_syms = _blocks_to_syms(blocks, m, R, k)
+    table, tt_bits, tt_fs = PL.require_native().build_encode_tables(
+        norm_tables, l2)
+    words, total_bits = encode_core(
+        torch.from_numpy(np.ascontiguousarray(syms)).to(dev),
+        torch.from_numpy(valid).to(dev),
+        torch.from_numpy(np.ascontiguousarray(init_syms)).to(dev),
+        torch.from_numpy(finish_slots).to(dev),
+        (to_device(table, dev), to_device(tt_bits, dev),
+         to_device(tt_fs, dev)),
+        k=k, L=l2, W=W)
+    words = words.cpu().numpy().astype(np.uint32)
+    total_bits = total_bits.cpu().numpy()
+    for j, bid in enumerate(block_ids):
+        payload = words[j].tobytes()[: (int(total_bits[j]) + 7) // 8]
+        sections[bid] = (payload if shared_table
+                         else _write_header(norm_tables[j], l2) + payload)
 
 
 def _encode_tail(tail, k, table_log, shared_table, s_shared, sections,
@@ -426,7 +495,7 @@ def _encode_tail(tail, k, table_log, shared_table, s_shared, sections,
         tmp_modes = np.full(1, MODE_FSE, np.int32)
         _encode_group(tail[None, :], norm_tables, log2_arr, k_t,
                       shared_table, tmp_sections, tmp_modes, np.array([0]),
-                      dev, lanes=lanes, bit_pack=bit_pack)
+                      (dev,), lanes=lanes, bit_pack=bit_pack)
         sections[idx] = tmp_sections[0]
         modes[idx] = tmp_modes[0]
     except ValueError:
@@ -509,8 +578,19 @@ def _parse_frame(frame: bytes) -> _ParsedFrame:
                         bool(flags & FLAG_PACKED))
 
 
+def _subframe_parts(pf: _ParsedFrame):
+    """(entries u32, crcs | None, payload bytes) of a parsed frame: the
+    pieces a larger frame assembles from sub-frames (the ordered multi-host
+    merge, ``parallel.multihost``)."""
+    entries = ((pf.modes.astype(np.uint32) << 30)
+               | pf.lens.astype(np.uint32))
+    payload = (pf.frame[int(pf.offs[0]): int(pf.offs[-1] + pf.lens[-1])]
+               if pf.n_blocks else b"")
+    return entries, pf.crcs, payload
+
+
 def decompress(frame: bytes, *, start: int = 0, length: int | None = None,
-               out=None, device="cuda"):
+               out=None, device=None, sharding=None):
     """Decompress a container frame back to bytes (frames of either
     package).
 
@@ -521,15 +601,18 @@ def decompress(frame: bytes, *, start: int = 0, length: int | None = None,
     of ``bytes``); block-aligned ranges decode straight into it. On a
     ValueError (corrupt frame / crc mismatch) ``out``'s contents are
     unspecified. ``device`` is where the block work runs (default
-    ``"cuda"``, which raises when CUDA is unavailable)."""
+    ``"cuda"``, which raises when CUDA is unavailable); ``sharding``
+    spreads it over ``sharding.mesh`` as in ``compress``."""
     return _decompress_parsed(_parse_frame(frame), start=start,
-                              length=length, out=out, device=device)
+                              length=length, out=out, device=device,
+                              sharding=sharding)
 
 
 def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
-                       length: int | None = None, out=None, device="cuda"):
+                       length: int | None = None, out=None, device=None,
+                       sharding=None):
     """Range-decode an already-parsed frame."""
-    dev = _device(device)
+    mesh = _mesh(device, sharding)
     if length is None:
         length = pf.total_len - start
     if not (0 <= start <= pf.total_len and 0 <= length <= pf.total_len - start):
@@ -589,10 +672,12 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
         else:
             raise ValueError(f"bad block mode {mode}")
 
-    for (rl, log2), items in groups.items():
-        _decode_group(items, rl, log2, pf, out, base, dev)
-    for (rl, log2), items in pl_groups.items():
-        _decode_group_pl(items, rl, log2, pf, out, base, dev)
+    # each group splits into one contiguous share per mesh entry
+    for decode, grouped in ((_decode_group, groups),
+                            (_decode_group_pl, pl_groups)):
+        for (rl, log2), items in grouped.items():
+            for dev, lo, hi in _shares(len(items), mesh):
+                decode(items[lo:hi], rl, log2, pf, out, base, dev)
     if pf.crcs is not None:
         for i in wanted:
             o = i * pf.block_size - base

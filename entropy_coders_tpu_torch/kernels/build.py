@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 The sources in ``entropy_coders_tpu_torch/csrc/*.cu`` have a plain C
-interface (no PyTorch headers), so they compile in seconds:
+interface (no PyTorch headers), so they compile in seconds: one nvcc per
+source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/entropy_coders_tpu_torch/<lib>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <src>.o csrc/<src>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/entropy_coders_tpu_torch/<lib>.so *.o
 
 The build runs at first use, on a machine with the CUDA toolkit, into
 ``build/entropy_coders_tpu_torch/`` at the repository root. The library's
@@ -26,17 +29,26 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "entropy_coders_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c"]
+LINK_FLAGS = [*ARCH, "-shared"]
 
 # ctypes signatures of the launchers: every pointer and the stream are
 # c_void_p (a plain int would be cut to 32 bits), every size a c_int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # words, sizes, dtab, syms, finals, cursors, B, W, k, L, R, stream
     "ect_pl_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # blocks, tt_bits, tt_fs, next_state, words, sizes, B, k, L, R, W, stream
     "ect_pl_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # ins[n], outs[n], accs[n], flags[n] (host arrays of device pointers),
+    # n, chunk_bytes, m, rank_lo, n_launch, vec16, sys, stream
+    "ect_ring": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P],
+    # vec16 -> co-resident ring CTAs on the current device (or -error)
+    "ect_ring_max_ctas": [_I],
+    # dev, peer
+    "ect_ring_enable_peer": [_I, _I],
 }
 
 _lib = None
@@ -56,7 +68,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -69,16 +81,36 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(srcs, objs)]
+    logs, failed = [], []
+    for src, p in zip(srcs, procs):
+        _, err = p.communicate()
+        logs.append(f"== {src.name}\n{err}")
+        if p.returncode != 0:
+            failed.append(f"{src.name} ({p.returncode})")
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                               + "\n".join(logs))
+        r = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     last_build["seconds"] = time.perf_counter() - t0
-    last_build["log"] = r.stderr
+    last_build["log"] = "\n".join(logs)
     return out
 
 
