@@ -8,7 +8,14 @@ It builds the CUDA kernels from ``entropy_coders_tpu_torch/csrc``, holds
 each one against its plain PyTorch version on the card, then drives the
 port's ``compress``/``decompress`` on ``device="cuda"`` through every golden
 container frame and three 128 MiB operating points, and times the kernels.
-Then it drives the multi-device path (``entropy_coders_tpu_torch.parallel``):
+Phase ``layouts`` drives the decode table-layout tools
+(``entropy_coders_tpu_torch.tools``, kernels B4/B5): ``l10_attack.run`` at
+L=10 on the 128 MiB data and ``upack_hilog.run`` at L=11 and 13 (64 MiB,
+and 128 MiB at L=13) check every layout against B1 and the input and time
+it beside its CTAs per SM; each layout is then held against its plain
+version on one block, exactly, and at L=10 also with a corrupted lane
+size. Then it drives the multi-device path
+(``entropy_coders_tpu_torch.parallel``):
 
 * ``ring``: the ring kernel (B3) against its plain version on virtual
   ranks, a mesh that names ``cuda:0`` n times, for n in {2, 3, 8}: int32
@@ -87,26 +94,6 @@ def load_testdata():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def cuda_ms(fn, runs: int = 7, warmup: int = 2):
-    """Median device time of ``fn`` in ms over ``runs`` runs after
-    ``warmup``, each bracketed by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times), times
 
 
 def host_ms(fn, devices, runs: int = 7, warmup: int = 2):
@@ -191,6 +178,7 @@ def compare_lanes(blocks_np, L, k, device="cuda", time_kernels=False,
 
     from entropy_coders_tpu.normalize import normalize_batch
     from entropy_coders_tpu_torch.ops import pl_coder as PL
+    from entropy_coders_tpu_torch.tools.bench_data import cuda_ms
 
     B, n = blocks_np.shape
     R = n // k - 1
@@ -373,6 +361,102 @@ def phase_timing(data):
     return out
 
 
+# --- the decode table-layout tools (B4/B5) ------------------------------------
+
+
+def layout_vs_plain(inp, full=False):
+    """Each layout that applies to ``inp`` (``l10_attack.LaneInputs``) on
+    its first block: the layout kernel against its plain version on the
+    same tensors, syms, finals and cursors exactly. With ``full``, also
+    the kernel's and the plain version's times on that block, and one
+    lane's size corrupted (``^= 0x4000``, past anything R rounds consume)
+    in the block's first 128 lanes: kernel and plain version agree and the
+    lane's cursor does not drain. Returns (largest difference, {layout:
+    {"ms": kernel, "plain_ms": plain version}} when ``full``)."""
+    import torch
+
+    from entropy_coders_tpu_torch.tools import l10_attack_harness as H
+    from entropy_coders_tpu_torch.tools.bench_data import cuda_ms
+
+    L, R = inp.L, inp.R
+    w, s, dec = inp.words[:1], inp.sizes[:1], inp.dec[:1]
+    cases = [(w, s, False)]
+    if full:
+        cw = inp.words.view(torch.int32)[:1, :, :128].contiguous()
+        cs = inp.sizes[:1, :128].clone()
+        cs[0, 3] ^= 0x4000
+        cases.append((cw.view(torch.uint32), cs, True))
+    worst, times = 0, {}
+    for name in H.LAYOUTS:
+        if not H.layout_applies(name, inp.norm_tables, L):
+            continue
+        table = H.layout_tables(dec, L, name)
+        for words, sizes, bad in cases:
+            got = H.decode_lanes_layout(words, sizes, table, layout=name,
+                                        L=L, R=R)
+            ref = H.decode_lanes_layout_ref(words, sizes, table, layout=name,
+                                            L=L, R=R)
+            torch.cuda.synchronize()
+            err = max(max_abs_diff(a, b) for a, b in zip(got, ref))
+            check(err == 0, f"L={L} {name}: kernel != plain version "
+                  f"({'corrupt' if bad else 'one block'}): {err}")
+            worst = max(worst, err)
+            if bad:
+                check(int(got[2][0, 3]) != 0,
+                      f"L={L} {name}: the corrupted lane drained")
+            else:
+                check(not bool(got[2].any()), f"L={L} {name}: cursors")
+        if full:  # the plain version's comparison above was its warm-up
+            times[name] = {
+                "ms": cuda_ms(lambda t=table, n=name: H.decode_lanes_layout(
+                    w, s, t, layout=n, L=L, R=R))[0],
+                "plain_ms": cuda_ms(
+                    lambda t=table, n=name: H.decode_lanes_layout_ref(
+                        w, s, t, layout=n, L=L, R=R), runs=2, warmup=0)[0]}
+    return worst, times
+
+
+def phase_layouts(data):
+    """B4/B5 through the layout tools: ``l10_attack.run`` at L=10 on the
+    128 MiB bench data and ``upack_hilog.run`` at L=11 and 13 on its
+    64 MiB 40-symbol corpus and at L=13 on 128 MiB of it (their path: the
+    counts start at 0 just before and are read just after), then every
+    instantiation against its plain version (``layout_vs_plain``) and the
+    flat table's co-resident CTAs per SM at L = 10..15. Returns (launches
+    per layout, largest difference, the L=10 results, the one-block times
+    at L=10)."""
+    from entropy_coders_tpu_torch.tools import l10_attack as LA
+    from entropy_coders_tpu_torch.tools import l10_attack_harness as H
+    from entropy_coders_tpu_torch.tools import upack_hilog as UH
+
+    t0 = time.perf_counter()
+    for name in H.LAYOUT_LAUNCHES:
+        H.LAYOUT_LAUNCHES[name] = 0
+    points = {"L10_bench": LA.run(10, BENCH_SIZE)}
+    for L in (11, 13):
+        points[f"L{L}_hilog"] = UH.run(L)
+    # 8 blocks at L=13: 1,024 CTAs, more than one wave of flat's CTAs per
+    # SM can hold, and not of upack's
+    points["L13_hilog_128MiB"] = UH.run(13, BENCH_SIZE)
+    launches = dict(H.LAYOUT_LAUNCHES)
+    check(all(n > 0 for n in launches.values()),
+          f"a layout of the tools' path never launched: {launches}")
+    # upack_hilog.run raises where upack does not apply; l10_attack.run
+    # skips such a layout, and at L=10 on this data all five apply
+    check(all(r["eligible"] for r in points["L10_bench"].values()),
+          f"L=10: a layout did not apply: {points['L10_bench']}")
+
+    worst, one10 = layout_vs_plain(LA.lane_inputs(data, 10), full=True)
+    for L in (11, 13):
+        err, _ = layout_vs_plain(LA.lane_inputs(UH.corpus(64 * MIB), L))
+        worst = max(worst, err)
+    flat_ctas = {L: H.layout_occupancy("flat", L) for L in range(10, 16)}
+    emit("layouts", points=points, one_block_L10=one10,
+         flat_ctas_per_sm=flat_ctas, launches=launches, max_abs_err=worst,
+         seconds=time.perf_counter() - t0)
+    return launches, worst, points["L10_bench"], one10
+
+
 # --- the multi-device path ----------------------------------------------------
 
 
@@ -462,6 +546,7 @@ def phase_ring(data):
     from entropy_coders_tpu.normalize import normalize_batch
     from entropy_coders_tpu_torch.ops import pl_coder as PL
     from entropy_coders_tpu_torch.parallel import rdma as R
+    from entropy_coders_tpu_torch.tools.bench_data import cuda_ms
 
     dev = torch.device("cuda", 0)
     blocks_np = data.reshape(-1, BLOCK)
@@ -726,9 +811,16 @@ def run_parallel(T, PL, R, data):
     return ring_err, ring_full, par
 
 
-def print_kernels(launches, worst, one, ring_err, ring_full, par):
+def print_kernels(launches, worst, one, ring_err, ring_full, par, layouts):
     """The line before the last: every kernel with its main-path launches,
-    its largest difference from its plain version and its times."""
+    its largest difference from its plain version and its times. B4 and B5
+    are one kernel (``pl_decode_layout.cu``): B4's row counts the layouts
+    that ``tools/l10_attack.py`` defines (fused, nosym) and times fused,
+    B5's the layouts the harness serves (flat, split, upack) and times
+    split, each against its plain version on one 16 MiB block at L=10;
+    ``layouts`` gives every layout's ms on all eight blocks at L=10."""
+    lay_launches, lay_err, lay10, one10 = layouts
+    lay_ms = {n: r["ms"] for n, r in lay10.items()}
     src = "entropy_coders_tpu_torch/csrc"
     print(json.dumps({"kernels": [
         {"name": "pl_decode (B1)", "route": "cuda",
@@ -746,6 +838,16 @@ def print_kernels(launches, worst, one, ring_err, ring_full, par):
          "replaces": "entropy_coders_tpu/parallel/rdma.py:46",
          "launches": par["ring"], "max_abs_err": ring_err,
          "ms": ring_full["ms"], "plain_ms": ring_full["plain_ms"]},
+        {"name": "pl_decode_layout fused/nosym (B4)", "route": "cuda",
+         "source": f"{src}/pl_decode_layout.cu",
+         "replaces": "tools/l10_attack.py:94",
+         "launches": lay_launches["fused"] + lay_launches["nosym"],
+         "max_abs_err": lay_err, **one10["fused"], "layouts": lay_ms},
+        {"name": "pl_decode_layout flat/split/upack (B5)", "route": "cuda",
+         "source": f"{src}/pl_decode_layout.cu",
+         "replaces": "tools/l10_attack_harness.py:24",
+         "launches": sum(lay_launches[n] for n in ("flat", "split", "upack")),
+         "max_abs_err": lay_err, **one10["split"], "layouts": lay_ms},
     ]}), flush=True)
 
 
@@ -773,8 +875,10 @@ def main() -> int:
         gg = load_testdata()
         data = gg.gen_sequence(0.2, BENCH_SIZE, BENCH_SEED)
         launches, worst, one = run_single(T, PL, gg, data)
+        layouts = phase_layouts(data)
         ring_err, ring_full, par = run_parallel(T, PL, R, data)
-        print_kernels(launches, worst, one, ring_err, ring_full, par)
+        print_kernels(launches, worst, one, ring_err, ring_full, par,
+                      layouts)
     except Exception:  # report any failing phase, print no result
         traceback.print_exc()
         return 1

@@ -8,7 +8,11 @@ the reference it is held against.
 * ``frame``     — ``compress``/``decompress`` of the block container;
 * ``ops``       — per-lane kernels' wrappers and plain versions, the
   shared-stream cores, the per-block histogram;
-* ``kernels``   — nvcc build + ctypes load of ``csrc/*.cu``.
+* ``parallel``  — block sharding over several devices, multi-process
+  frames, the ring collective;
+* ``kernels``   — nvcc build + ctypes load of ``csrc/*.cu``;
+* ``tools``     — the decode table-layout measurement scripts and their
+  kernel (``python -m entropy_coders_tpu_torch.tools.l10_attack``).
 
 It imports ``torch`` and never ``jax``: the jax-free parts of the JAX
 package (``normalize``, ``native``, ``spec``, ``constants``) are reused as

@@ -40,6 +40,12 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # words, sizes, dtab, syms, finals, cursors, B, W, k, L, R, stream
     "ect_pl_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # words, sizes, plane0, plane1, syms, finals, cursors, B, W, k, L, R,
+    # layout, stream
+    "ect_pl_decode_layout": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _P],
+    # layout, L -> co-resident CTAs per SM on the current device (or -error)
+    "ect_pl_decode_layout_occupancy": [_I, _I],
     # blocks, tt_bits, tt_fs, next_state, words, sizes, B, k, L, R, W, stream
     "ect_pl_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # ins[n], outs[n], accs[n], flags[n] (host arrays of device pointers),

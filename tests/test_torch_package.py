@@ -1,7 +1,7 @@
 """The port imports torch and never jax: a fresh interpreter that imports
-entropy_coders_tpu_torch (and its parallel package) and round-trips a frame
-on the CPU, sharded and not, must not have loaded jax (the machine with the
-card has none)."""
+entropy_coders_tpu_torch (and its parallel and tools packages), round-trips
+a frame on the CPU, sharded and not, and decodes one with the layout
+harness must not have loaded jax (the machine with the card has none)."""
 
 import subprocess
 import sys
@@ -33,6 +33,23 @@ x = np.arange(3 * 256, dtype=np.int32).reshape(3, 256)
 assert (P.rdma.ring_all_reduce_histograms(x, mesh).numpy()
         == x.sum(0)).all()
 assert P.multihost.owned_blocks(5) == (0, 5)
+from entropy_coders_tpu_torch import tools
+from entropy_coders_tpu_torch.tools import (bench_data, l10_attack,
+                                            l10_attack_harness as H,
+                                            upack_hilog, upack_l10)
+from entropy_coders_tpu_torch.ops import pl_coder as PL
+from entropy_coders_tpu_torch.ops.unsigned import to_device
+blocks = bench_data.gen_sequence(0.2, 2 * 4096)
+frame = T.compress(blocks, block_size=4096, k=128, lanes=True, table_log=9,
+                   device="cpu")
+sizes, payloads, nt, L, packed = bench_data.parse_pl_frame(frame, 4096, 128)
+words = to_device(PL.lane_split_batch(payloads, sizes, 128, 32), "cpu")
+dec = PL.tables_from_norm(nt, L, "cpu").dec
+syms, finals, cur = H.decode_lanes_layout(
+    words, torch.from_numpy(sizes), H.layout_tables(dec, L, "upack"),
+    layout="upack", L=L, R=31)
+assert not cur.any() and (finals.numpy() == blocks.reshape(2, 32, 128)[:, 31]).all()
+assert H.LAYOUT_LAUNCHES == dict.fromkeys(H.LAYOUTS, 0)
 assert T.__version__
 mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 print("JAX_MODULES", mods)
