@@ -14,8 +14,27 @@ L=10 on the 128 MiB data and ``upack_hilog.run`` at L=11 and 13 (64 MiB,
 and 128 MiB at L=13) check every layout against B1 and the input and time
 it beside its CTAs per SM; each layout is then held against its plain
 version on one block, exactly, and at L=10 also with a corrupted lane
-size. Then it drives the multi-device path
-(``entropy_coders_tpu_torch.parallel``):
+size. Before the timing, phase ``entry_points`` drives the user entry
+points on the card, each leg checking that B1 and B2 launched:
+
+* ``stream``: 512 MiB through ``stream.compress_file`` /
+  ``decompress_file`` at the library defaults (64 sub-frames): the file
+  equals ``compress`` of the whole buffer and decodes back exactly;
+* ``cli``: ``python -m entropy_coders_tpu_torch compress`` / ``decompress``
+  / ``stat`` as subprocesses at the throughput point (61,729,231 bytes),
+  ``warmup --mib 16`` beside them;
+* ``checkpoint``: a bf16 ``state_dict`` of GPT-2 small's shapes (124.4 M
+  parameters, random) through ``save_pytree`` / ``load_pytree``, bit for
+  bit; ``Checkpoint.load_leaf`` decodes only its leaf's blocks; the file's
+  frame equals ``compress`` of the payload; the ``ckpt_small`` golden is
+  written and read without ``ml_dtypes``;
+* ``pipeline``: the throughput point with the chunk pipeline and with one
+  chunk at a time, in turns, wall times side by side.
+
+Phase ``trace`` runs one throughput-point compress plus decompress under
+``utils.trace`` (``torch.profiler``) and prints the device time it saw
+beside the wall time and the five device ops that took the most. Then it
+drives the multi-device path (``entropy_coders_tpu_torch.parallel``):
 
 * ``ring``: the ring kernel (B3) against its plain version on virtual
   ranks, a mesh that names ``cuda:0`` n times, for n in {2, 3, 8}: int32
@@ -343,6 +362,425 @@ def phase_default(T, gen_sequence):
     emit("default", frame_bytes=len(frame), ratio=len(frame) / len(data),
          input_bytes=len(data), modes=modes, block_size=bs, k=TF.DEFAULT_K,
          **times)
+
+
+# --- the user entry points (stream, CLI, checkpoints) and the pipeline ------------
+
+
+def _sha(b) -> str:
+    return hashlib.sha256(b).hexdigest()
+
+
+def _launch_counts(PL):
+    return PL.ENCODE_LAUNCHES, PL.DECODE_LAUNCHES
+
+
+def entry_stream(T, PL, data, tmp):
+    """``data`` (512 MiB of the bench distribution) through
+    ``compress_file`` / ``decompress_file`` at the library defaults (128
+    KiB blocks, k=1024, ``chunk_blocks=64``: 64 sub-frames of 8 MiB): the
+    file equals ``compress`` of the whole buffer and decodes back exactly.
+    Returns (results, the whole-buffer frame's length)."""
+    import numpy as np
+    import torch
+
+    from entropy_coders_tpu_torch import stream as S
+
+    src, dst, back = tmp / "s.bin", tmp / "s.fset", tmp / "s.out"
+    data.tofile(src)
+    e0, d0 = _launch_counts(PL)
+    t0 = time.perf_counter()
+    n_out = S.compress_file(src, dst, device="cuda")
+    compress_s = time.perf_counter() - t0
+    e1, _ = _launch_counts(PL)
+    t0 = time.perf_counter()
+    n_back = S.decompress_file(dst, back, device="cuda")
+    torch.cuda.synchronize()
+    decompress_s = time.perf_counter() - t0
+    _, d1 = _launch_counts(PL)
+    check(n_back == len(data) and (np.fromfile(back, np.uint8) == data).all(),
+          "stream: decompress_file did not give back the input")
+    whole = T.compress(data, device="cuda")
+    check(_sha(dst.read_bytes()) == _sha(whole) and n_out == len(whole),
+          "stream: compress_file's file != compress of the whole buffer")
+    check(e1 > e0 and d1 > d0, f"stream: a kernel never launched "
+          f"(encode {e1 - e0}, decode {d1 - d0})")
+    return {"input_bytes": len(data), "file_bytes": n_out,
+            "sub_frames": -(-len(data) // (64 * (128 << 10))),
+            "compress_s": compress_s, "decompress_s": decompress_s,
+            "compress_GBps": len(data) / compress_s / 1e9,
+            "decompress_GBps": len(data) / decompress_s / 1e9,
+            "launches": {"encode": e1 - e0, "decode": d1 - d0}}, len(whole)
+
+
+def _cli(*args):
+    """Start ``python -m entropy_coders_tpu_torch`` with ``args``."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "entropy_coders_tpu_torch", *map(str, args)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _cli_done(p, what, timeout=600):
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+        raise SmokeFailure(f"cli {what} timed out")
+    check(p.returncode == 0, f"cli {what} failed ({p.returncode}):\n"
+          f"{err[-4000:]}")
+    return out, err
+
+
+def _cli_launches(err: str, what: str):
+    """The CLI's own report of its kernel launches (stderr)."""
+    import re
+
+    m = re.search(r"kernel launches: encode (\d+), decode (\d+)", err)
+    check(m is not None, f"cli {what}: no launch report in {err[-500:]!r}")
+    return int(m.group(1)), int(m.group(2))
+
+
+def entry_cli(data, tmp):
+    """The CLI as a subprocess on the 128 MiB bench data at the throughput
+    point's flags, with ``warmup --mib 16`` beside it."""
+    src, comp, back = tmp / "c.bin", tmp / "c.fset", tmp / "c.out"
+    data.tofile(src)
+    procs = []
+
+    def start(*args):
+        procs.append(_cli(*args))
+        return procs[-1]
+
+    t0 = time.perf_counter()
+    try:
+        warm = start("warmup", "--mib", 16)
+        t1 = time.perf_counter()
+        _, err = _cli_done(start(
+            "compress", src, comp, "--block-size", THROUGHPUT["block_size"],
+            "--k", THROUGHPUT["k"], "--table-log", THROUGHPUT["table_log"]),
+            "compress")
+        compress_s = time.perf_counter() - t1
+        enc, _ = _cli_launches(err, "compress")
+        size = comp.stat().st_size
+        check(size == THROUGHPUT_BYTES, f"cli: compress wrote {size} bytes, "
+              f"expected {THROUGHPUT_BYTES}")
+        t1 = time.perf_counter()
+        stat_p = start("stat", comp)  # beside the decompress: both only read
+        _, err = _cli_done(start("decompress", comp, back), "decompress")
+        decompress_s = time.perf_counter() - t1
+        _, dec = _cli_launches(err, "decompress")
+        check(back.read_bytes() == data.tobytes(), "cli: round trip")
+        stat, _ = _cli_done(stat_p, "stat")
+        check("blocks=8 " in stat and "'fse_pl': 8" in stat,
+              f"cli: stat says {stat!r}")
+        _, werr = _cli_done(warm, "warmup")
+        wenc, wdec = _cli_launches(werr, "warmup")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(min(enc, dec, wenc, wdec) > 0, "cli: a kernel never launched")
+    return {"file_bytes": size, "stat": stat.strip().splitlines(),
+            "compress_process_s": compress_s,
+            "decompress_process_s": decompress_s,
+            "launches": {"compress": enc, "decompress": dec,
+                         "warmup": [wenc, wdec]},
+            "seconds": time.perf_counter() - t0}
+
+
+GPT2 = dict(n_layer=12, n_embd=768, vocab=50257, n_positions=1024)
+GPT2_PARAMS = 124_439_808
+
+
+def gpt2_state_dict(seed: int, device="cuda"):
+    """A ``state_dict`` of GPT-2 small's published shapes (Radford et al.
+    2019; the public ``gpt2`` config) in bf16 on ``cuda:0``, with the
+    published init drawn from a seeded ``torch.Generator``: weights
+    N(0, 0.02) (the residual projections ``c_proj`` 0.02 / sqrt(2 *
+    n_layer)), biases 0, LayerNorm weights 1. Random, not real weights."""
+    import math
+
+    import torch
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d, bf = GPT2["n_embd"], torch.bfloat16
+
+    def normal(*shape, std=0.02):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(bf)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=bf, device=dev)
+
+    def ones(n):
+        return torch.ones(n, dtype=bf, device=dev)
+
+    proj = 0.02 / math.sqrt(2 * GPT2["n_layer"])
+    sd = {"wte.weight": normal(GPT2["vocab"], d),
+          "wpe.weight": normal(GPT2["n_positions"], d)}
+    for i in range(GPT2["n_layer"]):
+        h = f"h.{i}."
+        sd.update({
+            h + "ln_1.weight": ones(d), h + "ln_1.bias": zeros(d),
+            h + "attn.c_attn.weight": normal(d, 3 * d),
+            h + "attn.c_attn.bias": zeros(3 * d),
+            h + "attn.c_proj.weight": normal(d, d, std=proj),
+            h + "attn.c_proj.bias": zeros(d),
+            h + "ln_2.weight": ones(d), h + "ln_2.bias": zeros(d),
+            h + "mlp.c_fc.weight": normal(d, 4 * d),
+            h + "mlp.c_fc.bias": zeros(4 * d),
+            h + "mlp.c_proj.weight": normal(4 * d, d, std=proj),
+            h + "mlp.c_proj.bias": zeros(d)})
+    sd["ln_f.weight"], sd["ln_f.bias"] = ones(d), zeros(d)
+    return sd
+
+
+def _leaf_bytes(t):
+    """A leaf's bytes as a host uint8 array (tensor or numpy)."""
+    import numpy as np
+    import torch
+
+    if isinstance(t, torch.Tensor):
+        return t.detach().contiguous().reshape(-1).view(
+            torch.uint8).cpu().numpy()
+    return np.ascontiguousarray(t).reshape(-1).view(np.uint8)
+
+
+def _flat_leaves(tree, path=()):
+    """(path, leaf) pairs of a tree in any order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _flat_leaves(v, path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _flat_leaves(v, path + (str(i),))]
+    return [("/".join(path), tree)]
+
+
+def trees_bit_equal(a, b) -> bool:
+    fa, fb = dict(_flat_leaves(a)), dict(_flat_leaves(b))
+    return fa.keys() == fb.keys() and all(
+        tuple(fa[k].shape) == tuple(fb[k].shape)
+        and (_leaf_bytes(fa[k]) == _leaf_bytes(fb[k])).all() for k in fa)
+
+
+def entry_checkpoint(T, PL, tmp):
+    """GPT-2 small's shapes in bf16 through ``save_pytree`` /
+    ``load_pytree`` and ``Checkpoint.load_leaf``, and the ``ckpt_small``
+    golden written and read without ``ml_dtypes``."""
+    import struct
+
+    import numpy as np
+    import torch
+
+    from entropy_coders_tpu_torch import checkpoint as CK
+    from entropy_coders_tpu_torch import frame as TF
+    from entropy_coders_tpu_torch.tools.bench_data import ckpt_tree
+
+    sd = gpt2_state_dict(BENCH_SEED)
+    n_params = sum(t.numel() for t in sd.values())
+    check(n_params == GPT2_PARAMS, f"GPT-2 small has {n_params} parameters")
+    path = tmp / "gpt2.fsck"
+    e0, d0 = _launch_counts(PL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    size = CK.save_pytree(path, sd, checksum=True)
+    save_s = time.perf_counter() - t0
+    e1, d1 = _launch_counts(PL)
+    t0 = time.perf_counter()
+    back = CK.load_pytree(path)
+    load_s = time.perf_counter() - t0
+    e2, d2 = _launch_counts(PL)
+    check(e1 > e0 and d2 > d1, f"checkpoint: a kernel never launched "
+          f"(encode {e1 - e0}, decode {d2 - d1})")
+    check(trees_bit_equal(back, sd), "checkpoint: a leaf differs")
+    check(all(t.dtype == torch.bfloat16 and t.device.type == "cpu"
+              for t in back.values()), "checkpoint: leaves not bf16 on CPU")
+
+    leaf = "h.5.mlp.c_fc.weight"
+    with CK.Checkpoint(path) as ck:
+        m = ck.leaf_meta(leaf)
+        pf = ck._pf
+        b_lo = m["offset"] // pf.block_size
+        b_hi = (m["offset"] + m["nbytes"] - 1) // pf.block_size + 1
+        want_blocks = int((pf.modes[b_lo:b_hi] == TF.MODE_FSE_PL).sum())
+        blocks0, launches0 = PL.DECODE_BLOCKS, PL.DECODE_LAUNCHES
+        got = ck.load_leaf(leaf)
+        leaf_blocks = PL.DECODE_BLOCKS - blocks0
+        leaf_launches = PL.DECODE_LAUNCHES - launches0
+        n_blocks = pf.n_blocks
+        del pf
+    check(trees_bit_equal({leaf: got}, {leaf: sd[leaf]}),
+          f"checkpoint: load_leaf({leaf}) differs")
+    check(leaf_blocks == want_blocks > 0 and leaf_launches > 0,
+          f"checkpoint: load_leaf decoded {leaf_blocks} blocks, its range "
+          f"holds {want_blocks} MODE_FSE_PL blocks")
+
+    raw = path.read_bytes()
+    (mlen,) = struct.unpack_from("<I", raw, 8)
+    metas = json.loads(raw[12: 12 + mlen])["leaves"]
+    payload = np.zeros(metas[-1]["offset"] + metas[-1]["nbytes"], np.uint8)
+    for mt in metas:
+        payload[mt["offset"]: mt["offset"] + mt["nbytes"]] = \
+            _leaf_bytes(sd[mt["path"]])
+    check(raw[12 + mlen:] == T.compress(payload, device="cuda",
+                                        checksum=True),
+          "checkpoint: embedded frame != compress of the payload")
+
+    golden = json.loads((ROOT / "tests" / "data" / "golden"
+                         / "manifest.json").read_text())
+    case = next(c for c in golden if c["name"] == "ckpt_small")
+    small = ckpt_tree(case["input"]["seed"])
+    p = tmp / "small.fsck"
+    CK.save_pytree(p, small, device="cuda", **{
+        kk: case[kk] for kk in ("block_size", "k", "lanes", "checksum")})
+    check(_sha(p.read_bytes()) == case["sha256"],
+          "checkpoint: ckpt_small sha256 differs")
+    check(trees_bit_equal(CK.load_pytree(ROOT / "tests" / "data" / "golden"
+                                         / case["file"]), small),
+          "checkpoint: the ckpt_small golden loads to another tree")
+    return {"params": n_params, "raw_bytes": int(payload.size),
+            "file_bytes": size, "ratio": size / payload.size,
+            "save_s": save_s, "load_s": load_s,
+            "save_GBps": payload.size / save_s / 1e9,
+            "load_GBps": payload.size / load_s / 1e9,
+            "launches": {"encode": e1 - e0, "decode": d2 - d1},
+            "load_leaf": {"leaf": leaf, "nbytes": m["nbytes"],
+                          "blocks_decoded": leaf_blocks,
+                          "launches": leaf_launches,
+                          "blocks_in_frame": n_blocks},
+            "ckpt_small": "reproduced"}
+
+
+def one_chunk_at_a_time(PL):
+    """Patch ``PL.encode_lanes_norm``/``decode_lanes_norm`` so that a lazy
+    call drains its chunk before it returns (the loop before the
+    pipeline: dispatch, drain, next chunk). Returns the undo."""
+    real = PL.encode_lanes_norm, PL.decode_lanes_norm
+
+    def eager(fn):
+        def call(*args, lazy=False, **kw):
+            out = fn(*args, lazy=lazy, **kw)
+            if not lazy:
+                return out
+            res = out()
+            return lambda: res
+        return call
+
+    PL.encode_lanes_norm, PL.decode_lanes_norm = map(eager, real)
+
+    def undo():
+        PL.encode_lanes_norm, PL.decode_lanes_norm = real
+    return undo
+
+
+def entry_pipeline(T, PL, data, knobs, frame_bytes, rounds):
+    """``data`` at ``knobs`` with the chunk pipeline and with one chunk at a
+    time, in turns (sync, pipe, pipe, sync; ``rounds`` times): host-clock
+    wall times, each run ending synchronised; every frame ``frame_bytes``
+    long and exact."""
+    import torch
+
+    sync, pipe = "one_chunk_at_a_time", "pipelined"
+    times = {m: {"compress_s": [], "decompress_s": []} for m in (sync, pipe)}
+    order = [sync, pipe, pipe, sync] * rounds
+    for mode in order:
+        undo = one_chunk_at_a_time(PL) if mode == sync else None
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame = T.compress(data, device="cuda", **knobs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = T.decompress(frame, device="cuda")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        finally:
+            if undo:
+                undo()
+        check(len(frame) == frame_bytes, f"pipeline ({mode}): frame is "
+              f"{len(frame)} bytes, expected {frame_bytes}")
+        check(out == data.tobytes(), f"pipeline ({mode}): round trip")
+        times[mode]["compress_s"].append(t1 - t0)
+        times[mode]["decompress_s"].append(t2 - t1)
+    for mode in times:
+        for k in ("compress_s", "decompress_s"):
+            times[mode][k.replace("_s", "_median_s")] = statistics.median(
+                times[mode][k])
+    return {"input_bytes": len(data), "frame_bytes": frame_bytes,
+            "order": order, **times}
+
+
+def phase_entry_points(T, PL, gg, data):
+    """Phase ``entry_points``: every count starts at 0 here; each leg
+    checks its own kernels launched, and the phase that both did. The
+    pipeline runs at the throughput point (2 chunks a group) and on the
+    stream leg's 512 MiB at the defaults (8 chunks a group)."""
+    import tempfile
+
+    PL.DECODE_LAUNCHES = 0
+    PL.ENCODE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    big = gg.gen_sequence(0.2, 512 * MIB, BENCH_SEED + 2)
+    with tempfile.TemporaryDirectory(prefix="ect_smoke_") as td:
+        tmp = Path(td)
+        stream, big_frame_bytes = entry_stream(T, PL, big, tmp)
+        legs = {"stream": stream, "cli": entry_cli(data, tmp),
+                "checkpoint": entry_checkpoint(T, PL, tmp)}
+    T.compress(data, device="cuda", **THROUGHPUT)  # warm
+    legs["pipeline"] = {
+        "throughput": entry_pipeline(T, PL, data, THROUGHPUT,
+                                     THROUGHPUT_BYTES, 2),
+        "default_512MiB": entry_pipeline(T, PL, big, {}, big_frame_bytes, 1)}
+    launches = {"decode": PL.DECODE_LAUNCHES, "encode": PL.ENCODE_LAUNCHES}
+    check(launches["decode"] > 0 and launches["encode"] > 0,
+          f"a kernel of the entry points never launched: {launches}")
+    emit("entry_points", **legs, launches=launches,
+         seconds=time.perf_counter() - t0)
+    return launches
+
+
+def phase_trace(T, data):
+    """One throughput-point compress plus decompress under the port's
+    ``utils.trace``: the device time ``torch.profiler`` saw (kernels and
+    copies) against the wall time, and the five device ops that took the
+    most. The trace goes to ``build/trace/``."""
+    import torch
+
+    from entropy_coders_tpu_torch import utils
+
+    from torch.autograd import DeviceType
+
+    T.compress(data, device="cuda", **THROUGHPUT)  # warm
+    t0 = time.perf_counter()
+    with utils.trace(ROOT / "build" / "trace") as prof:
+        start_s = time.perf_counter() - t0  # the profiler's own start-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        frame = T.decompress(T.compress(data, device="cuda", **THROUGHPUT),
+                             device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t1
+    check(frame == data.tobytes(), "trace: round trip")
+    # device-side events only: a CPU op's self device time repeats its
+    # kernels' and copies'
+    ops = [(e.key, e.self_device_time_total, e.count)
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    copy = ("Memcpy", "Memset")
+    kernel_us = sum(t for name, t, _ in ops if not name.startswith(copy))
+    copy_us = sum(t for name, t, _ in ops if name.startswith(copy))
+    top = sorted(ops, key=lambda o: -o[1])[:5]
+    # busy share: device op time over the wall time of the work (copies
+    # on the side streams may overlap kernels and count twice)
+    emit("trace", wall_ms=wall_s * 1e3, profiler_start_s=start_s,
+         device_kernel_ms=kernel_us / 1e3, device_copy_ms=copy_us / 1e3,
+         device_busy_share=(kernel_us + copy_us) / 1e3 / (wall_s * 1e3),
+         device_time_visible=bool(ops),
+         top5=[{"op": name[:120], "ms": t / 1e3, "calls": n}
+               for name, t, n in top])
 
 
 def phase_timing(data):
@@ -779,6 +1217,8 @@ def run_single(T, PL, gg, data):
     check(launches["decode"] > 0 and launches["encode"] > 0,
           f"a kernel of the main path never launched: {launches}")
     emit("launches", **launches)
+    phase_entry_points(T, PL, gg, data)
+    phase_trace(T, data)
 
     timing = phase_timing(data)
     worst = max([worst] + [timing[p][s]["max_abs_err"]

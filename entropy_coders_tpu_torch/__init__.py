@@ -6,8 +6,14 @@ the same ``FSET`` frames (FORMAT.md), byte for byte; the JAX package stays
 the reference it is held against.
 
 * ``frame``     — ``compress``/``decompress`` of the block container;
+* ``stream``    — bounded-memory file compression (atomic writes);
+* ``checkpoint`` — compressed ``state_dict``/tree checkpoints with
+  per-tensor range loads (``FSCK`` files, shared with the JAX package);
+* ``__main__``  — the CLI, ``python -m entropy_coders_tpu_torch``;
+* ``utils``     — ``frame_stats``, ``timed``, ``trace`` (torch.profiler),
+  the bounds-checked cores (``utils.checked``);
 * ``ops``       — per-lane kernels' wrappers and plain versions, the
-  shared-stream cores, the per-block histogram;
+  shared-stream cores and payload codec, the per-block histogram;
 * ``parallel``  — block sharding over several devices, multi-process
   frames, the ring collective;
 * ``kernels``   — nvcc build + ctypes load of ``csrc/*.cu``;

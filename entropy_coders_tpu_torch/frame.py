@@ -15,8 +15,12 @@ Pipeline per frame:
 ``device`` selects where the block work runs. It defaults to ``"cuda"`` and
 raises when CUDA is unavailable; ``device="cpu"`` runs the kernels' plain
 PyTorch versions. ``lanes=None`` resolves to the per-lane path on CUDA (the
-JAX package resolves it to its TPU backend). The chunks run one after the
-other: nothing overlaps the host merge with device work yet.
+JAX package resolves it to its TPU backend). The per-lane path works in
+chunks of ~64 MiB of raw bytes and pipelines them as the JAX package does
+(``lazy=True``): every chunk's kernel is dispatched before the first is
+drained, so the host merge (encode) or write-back (decode) of chunk i
+overlaps the device work and copies of the chunks after it; every chunk's
+output is on the card at once.
 
 ``sharding`` (``parallel.block_sharding(mesh)``, the counterpart of the JAX
 package's ``NamedSharding`` over the block axis) spreads the block work over
@@ -41,9 +45,9 @@ from entropy_coders_tpu.constants import (TABLE_LOG_DEFAULT, TABLE_LOG_MAX,
 from entropy_coders_tpu.normalize import normalize_batch
 
 from .ops import pl_coder as PL
-from .ops.coder import decode_core, encode_core
+from .ops.coder import blocks_to_syms, decode_core, encode_core, encode_layout
 from .ops.histogram import histogram_blocks
-from .ops.unsigned import to_device, to_numpy
+from .ops.unsigned import to_device
 
 MAGIC = b"FSET"
 VERSION = 2
@@ -117,33 +121,6 @@ def _shares(n_rows: int, mesh) -> list[tuple[torch.device, int, int]]:
     bounds = [i * n_rows // p for i in range(p + 1)]
     return [(d, bounds[i], bounds[i + 1]) for i, d in enumerate(mesh)
             if bounds[i + 1] > bounds[i]]
-
-
-# --- shared-stream layout (ops.coder) ----------------------------------------
-
-
-def _encode_layout(n: int, k: int):
-    """Static emission layout for blocks of raw length n (see ops.coder)."""
-    m = n - k
-    R = max(_cdiv(m, k), 1)
-    valid = (np.arange(R * k) < m).reshape(R, k)
-    finish_slots = np.array([(n - 1 - s) % k for s in range(k - 1, -1, -1)],
-                            np.int64)
-    W = _cdiv((R * k + k) * 16 + 32, 32) + 2
-    return m, R, valid, finish_slots, W
-
-
-def _blocks_to_syms(blocks: np.ndarray, m: int, R: int, k: int):
-    """(B, n) raw blocks -> (B, R, k) symbols in emission order + (B, k)
-    init symbols (slot t holds byte n-1-t)."""
-    B, n = blocks.shape
-    rev = blocks[:, :m][:, ::-1]
-    pad = R * k - m
-    if pad:
-        rev = np.concatenate([rev, np.zeros((B, pad), np.uint8)], axis=1)
-    syms = rev.reshape(B, R, k)
-    init_syms = blocks[:, n - k:][:, ::-1].copy()
-    return syms, init_syms
 
 
 # --- compress ----------------------------------------------------------------
@@ -386,12 +363,10 @@ def _encode_group_pl(blocks_dev, norm_tables, l2, k, shared_table, sections,
     B, n = blocks_dev.shape
     R = n // k - 1
     W = PL.encode_w_bound(R, int(l2))
-    chunk = max(1, _cdiv(_CHUNK_RAW, n))
-    for j0 in range(0, B, chunk):
-        words, szs = PL.encode_lanes_norm(blocks_dev[j0: j0 + chunk],
-                                          norm_tables[j0: j0 + chunk],
-                                          k=k, L=int(l2), W=W)
-        words, szs = to_numpy(words), szs.cpu().numpy()
+
+    def drain(j0, words, szs):
+        # host side of the pipeline: the C++ merge and section assembly of
+        # one chunk, overlapping the device encode of the chunks after it
         payloads = PL.lane_merge_batch(words, szs, pack_bits=bit_pack)
         for jj in range(words.shape[0]):
             j = j0 + jj
@@ -403,6 +378,16 @@ def _encode_group_pl(blocks_dev, norm_tables, l2, k, shared_table, sections,
                 sec = _write_header(norm_tables[j], int(l2)) + sec
             sections[block_ids[j]] = sec
             modes[block_ids[j]] = MODE_FSE_PL
+
+    # every chunk's kernel is dispatched before the first is drained
+    # (entropy_coders_tpu/frame.py:477-488)
+    chunk = max(1, _cdiv(_CHUNK_RAW, n))
+    handles = [(j0, PL.encode_lanes_norm(blocks_dev[j0: j0 + chunk],
+                                         norm_tables[j0: j0 + chunk], k=k,
+                                         L=int(l2), W=W, lazy=True))
+               for j0 in range(0, B, chunk)]
+    for j0, collect in handles:
+        drain(j0, *collect())
 
 
 def _rows_on(dev, ids, blocks, placed):
@@ -434,7 +419,7 @@ def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
         rows = np.flatnonzero(log2_arr == l2)
         pl = lanes and _pl_eligible(n, k, int(l2))
         if not pl and layout is None:
-            layout = _encode_layout(n, k)
+            layout = encode_layout(n, k)
         for dev, lo, hi in _shares(len(rows), mesh):
             ids = block_ids[rows[lo:hi]]
             if pl:
@@ -453,7 +438,7 @@ def _encode_group_fse(blocks, norm_tables, l2, k, shared_table, sections,
     """Shared-stream (MODE_FSE) encode of the host blocks (B, n) sharing
     table log ``l2`` on ``dev`` (ops.coder.encode_core)."""
     m, R, valid, finish_slots, W = layout
-    syms, init_syms = _blocks_to_syms(blocks, m, R, k)
+    syms, init_syms = blocks_to_syms(blocks, m, R, k)
     table, tt_bits, tt_fs = PL.require_native().build_encode_tables(
         norm_tables, l2)
     words, total_bits = encode_core(
@@ -745,16 +730,22 @@ def _decode_group_pl(items, raw_len, log2, pf, out, out_base, dev):
         norm_tables[j] = nt
     W = -(-(int(sizes.max()) // 32 + 3) // 16) * 16
 
+    # the host splits and queues the h2d of every chunk and dispatches its
+    # kernel, then drains in order: the write-back of chunk i overlaps the
+    # device decode of the chunks after it
+    # (entropy_coders_tpu/frame.py:854-868)
     chunk = max(1, _cdiv(_CHUNK_RAW, raw_len))
+    handles = []
     for j0 in range(0, B, chunk):
         words = PL.lane_split_batch(payloads[j0: j0 + chunk],
                                     sizes[j0: j0 + chunk], k, W,
                                     pack_bits=bool(pf.packed))
-        syms, finals = PL.decode_lanes_norm(
-            to_device(words, dev),
-            torch.from_numpy(sizes[j0: j0 + chunk]).to(dev),
-            norm_tables[j0: j0 + chunk], k=k, L=log2, R=R)
-        syms, finals = syms.cpu().numpy(), finals.cpu().numpy()
+        handles.append((j0, PL.decode_lanes_norm(
+            to_device(words, dev, non_blocking=True),
+            to_device(sizes[j0: j0 + chunk], dev, non_blocking=True),
+            norm_tables[j0: j0 + chunk], k=k, L=log2, R=R, lazy=True)))
+    for j0, collect in handles:
+        syms, finals = collect()
         for jj in range(syms.shape[0]):
             o = items[j0 + jj][0] * pf.block_size - out_base
             out[o: o + R * k] = syms[jj].reshape(-1)

@@ -1,3 +1,7 @@
 """Compute path of the port: per-lane kernels and their plain versions
-(``pl_coder``), the shared-stream cores (``coder``) and the per-block
-histogram (``histogram``)."""
+(``pl_coder``), the shared-stream cores and the reference-format payload
+codec (``coder``) and the per-block histogram (``histogram``)."""
+
+from .coder import decode_interleaved, encode_interleaved
+
+__all__ = ["decode_interleaved", "encode_interleaved"]

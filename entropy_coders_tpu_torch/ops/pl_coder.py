@@ -17,7 +17,14 @@ CPU tensors it runs the plain PyTorch version (``decode_lanes_ref`` /
 ``encode_lanes_ref``): vectorised over (B, k), a Python loop over rounds,
 int64 throughout. The plain versions are the oracle the kernels are held
 against on the card. ``DECODE_LAUNCHES``/``ENCODE_LAUNCHES`` count kernel
-launches, so a run can show that its path went through the kernels.
+launches, so a run can show that its path went through the kernels;
+``DECODE_BLOCKS`` counts the blocks B1 decoded, so a range decode can show
+that it touched only its blocks.
+
+``encode_lanes_norm``/``decode_lanes_norm`` take ``lazy=True``: the kernel
+is launched and its d2h queued on a side stream, and a ``collect`` closure
+waits on that chunk's event alone (the container dispatches every chunk,
+then drains them in order).
 
 Tables are flat (``tables_from_norm``), built on the host by the C++ library
 of the JAX package (``entropy_coders_tpu.native``), bit-identical to
@@ -32,9 +39,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .unsigned import as_int64, int64_to_u32, to_device
+from .unsigned import as_int64, int64_to_u32, signed_view, to_device, to_numpy
 
 __all__ = [
+    "DECODE_BLOCKS",
     "DECODE_LAUNCHES",
     "ENCODE_LAUNCHES",
     "LaneTables",
@@ -53,6 +61,7 @@ __all__ = [
 
 DECODE_LAUNCHES = 0  # B1 launches since import (or since a caller reset it)
 ENCODE_LAUNCHES = 0  # B2 launches
+DECODE_BLOCKS = 0    # blocks decoded by those B1 launches
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -87,13 +96,16 @@ def tables_from_norm(norm_tables: np.ndarray, L: int, device) -> LaneTables:
     """(B, 256) int32 normalized histograms sharing table log ``L`` -> the
     flat decode and encode tables on ``device``, built by
     ``native.build_{encode,decode}_tables`` (what the JAX host-table route
-    feeds its kernels, ``pl_coder.py:775-778, 931``)."""
+    feeds its kernels, ``pl_coder.py:775-778, 931``). A CUDA copy is
+    queued without waiting for the card (``unsigned.to_device``'s
+    ``non_blocking``), so a lazy call dispatches behind the chunks before
+    it."""
     native = require_native()
     nt = np.ascontiguousarray(norm_tables, np.int32)
     table, tt_bits, tt_fs = native.build_encode_tables(nt, int(L))
     dec = native.build_decode_tables(nt, int(L))
-    return LaneTables(to_device(dec, device), to_device(tt_bits, device),
-                      to_device(tt_fs, device), to_device(table, device))
+    return LaneTables(*(to_device(t, device, non_blocking=True)
+                        for t in (dec, tt_bits, tt_fs, table)))
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
@@ -169,7 +181,7 @@ def decode_lanes(words, sizes, dec, *, L: int, R: int):
 
     CUDA tensors launch B1 (and raise if the launch fails); CPU tensors run
     ``decode_lanes_ref``."""
-    global DECODE_LAUNCHES
+    global DECODE_BLOCKS, DECODE_LAUNCHES
     if words.dim() != 3:
         raise ValueError(f"words must be (B, W, k), got {tuple(words.shape)}")
     B, W, k = words.shape
@@ -199,23 +211,95 @@ def decode_lanes(words, sizes, dec, *, L: int, R: int):
                 cursors.data_ptr(), B, W, k, L, R,
                 torch.cuda.current_stream(dev).cuda_stream)
     DECODE_LAUNCHES += 1
+    DECODE_BLOCKS += B
     return syms, finals, cursors
 
 
-def decode_lanes_norm(words, sizes, norm_tables, *, k: int, L: int, R: int):
+# Side streams for the d2h copies of lazy calls, per card: role 0 takes the
+# copies queued when a chunk is dispatched, role 1 those queued by a
+# ``collect``. A stream runs in order, so a copy queued by a collect on
+# role 0 would wait behind the later chunks' copies, and with them behind
+# every kernel dispatched after its own.
+_COPY_STREAMS: dict[tuple[int, int], torch.cuda.Stream] = {}
+
+
+def _copy_stream(dev: torch.device, role: int) -> torch.cuda.Stream:
+    if (dev.index, role) not in _COPY_STREAMS:
+        _COPY_STREAMS[dev.index, role] = torch.cuda.Stream(dev)
+    return _COPY_STREAMS[dev.index, role]
+
+
+def _launched(dev: torch.device) -> torch.cuda.Event:
+    """An event after the work queued so far on ``dev``'s current stream
+    (the kernel just launched)."""
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
+
+
+def _d2h(tensors, after: torch.cuda.Event, role: int):
+    """Queue the copy of the CUDA ``tensors`` (all on one card) into pinned
+    host buffers on copy stream ``role``, once event ``after`` has passed.
+    Returns (host tensors, wait): ``wait()`` blocks on this copy's own
+    event, not on a stream, so kernels queued later keep running. The
+    sources stay referenced until ``wait()`` has seen the copy done, and
+    each is ``record_stream``-ed on the copy stream, so the allocator does
+    not hand its memory back before the copy has read it."""
+    cs = _copy_stream(tensors[0].device, role)
+    cs.wait_event(after)
+    sources, hosts = list(tensors), []
+    with torch.cuda.stream(cs):
+        for t in sources:
+            t.record_stream(cs)
+            src = signed_view(t)
+            h = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            hosts.append(h.copy_(src, non_blocking=True).view(t.dtype))
+        done = torch.cuda.Event()
+        done.record(cs)
+
+    def wait():
+        done.synchronize()
+        sources.clear()
+
+    return hosts, wait
+
+
+def decode_lanes_norm(words, sizes, norm_tables, *, k: int, L: int, R: int,
+                      lazy: bool = False):
     """Batched decode from lane words and the (B, 256) int32 normalized
     histograms (all sharing table log ``L``), tables built by
     ``tables_from_norm`` on the words' device. words (B, W, k) uint32 and
     sizes (B, k) int32 tensors in; (syms (B, R, k) uint8, finals (B, k)
     uint8) out, on the same device. Raises ValueError on a corrupt stream
-    (any lane cursor not exactly drained)."""
+    (any lane cursor not exactly drained).
+
+    ``lazy=True`` launches B1, queues the d2h of its outputs and returns a
+    zero-argument ``collect`` (the JAX package's, ``pl_coder.py:953-965``):
+    it waits for this call's copies only, raises the ValueError above, and
+    returns host numpy (syms, finals). On the CPU the plain version has
+    already run and ``collect`` returns its results. Callers dispatch
+    every chunk and then collect them in order (``frame._decode_group_pl``),
+    so every chunk's words and outputs are on the card at once."""
     if words.dim() != 3 or words.shape[2] != k:
         raise ValueError("k must match words (B, W, k)")
     tables = tables_from_norm(norm_tables, L, words.device)
     syms, finals, cursors = decode_lanes(words, sizes, tables.dec, L=L, R=R)
-    if bool((cursors != 0).any()):
-        raise ValueError("corrupt stream: lane cursor not drained")
-    return syms, finals
+    if not lazy:
+        if bool((cursors != 0).any()):
+            raise ValueError("corrupt stream: lane cursor not drained")
+        return syms, finals
+    wait = lambda: None  # noqa: E731 - the plain version has run
+    if words.device.type == "cuda":
+        (syms, finals, cursors), wait = _d2h(
+            [syms, finals, cursors], _launched(words.device), 0)
+
+    def collect():
+        wait()
+        if cursors.numpy().any():
+            raise ValueError("corrupt stream: lane cursor not drained")
+        return syms.numpy(), finals.numpy()
+
+    return collect
 
 
 # ---------------------------------------------------------------------------
@@ -326,20 +410,56 @@ def encode_lanes(blocks, tables: LaneTables, *, k: int, L: int, W: int):
     return words, sizes
 
 
-def encode_lanes_norm(blocks, norm_tables, *, k: int, L: int, W: int):
+def _w_act(max_bits: int, W: int) -> int:
+    """The JAX package's count of populated word rows."""
+    return min(_cdiv(max_bits // 32 + 2, 16) * 16, W)
+
+
+def encode_lanes_norm(blocks, norm_tables, *, k: int, L: int, W: int,
+                      lazy: bool = False):
     """Batched encode from raw blocks (B, n) uint8 with n = (R+1)*k and the
     (B, 256) int32 normalized histograms (all sharing table log ``L``),
     tables built by ``tables_from_norm`` on the blocks' device.
     Returns (words (B, w_act, k) uint32, sizes (B, k) int32) on that
     device: ``w_act`` is the JAX package's count of populated rows,
-    ``min(ceil((max(sizes) // 32 + 2) / 16) * 16, W)``."""
+    ``min(ceil((max(sizes) // 32 + 2) / 16) * 16, W)``.
+
+    ``lazy=True`` launches B2, queues the d2h of the (B, k) sizes and
+    returns a zero-argument ``collect`` (the JAX package's,
+    ``pl_coder.py:812-824``): it waits for those sizes, computes ``w_act``
+    on the host and copies only word rows ``[:w_act]``, behind this call's
+    kernel and not behind the kernels queued after it, and returns host
+    numpy (words uint32, sizes int32). On the CPU the plain version has
+    already run. Callers dispatch every chunk and then collect them in
+    order (``frame._encode_group_pl``), so every chunk's words are on the
+    card at once: W * k * 4 bytes a block at the worst-case bound W, about
+    L/8 of its raw bytes plus two guard rows (1.03x at 16 MiB blocks and
+    L=8, 1.5x at 128 KiB blocks and L=11: at most 768 MiB for a 512 MiB
+    call, well inside an 80 GB card)."""
     B = blocks.shape[0]
-    tables = tables_from_norm(norm_tables, L, blocks.device)
+    dev = blocks.device
+    tables = tables_from_norm(norm_tables, L, dev)
     words, sizes = encode_lanes(blocks, tables, k=k, L=L, W=W)
-    if B == 0:
-        return words[:, :0], sizes
-    w_act = min(_cdiv(int(sizes.max()) // 32 + 2, 16) * 16, W)
-    return words[:, :w_act], sizes
+    if not lazy:
+        if B == 0:
+            return words[:, :0], sizes
+        return words[:, :_w_act(int(sizes.max()), W)], sizes
+    if dev.type != "cuda":  # the plain version has run
+        out = (to_numpy(words[:, :_w_act(int(sizes.max()), W) if B else 0]),
+               sizes.numpy())
+        return lambda: out
+    launched = _launched(dev)
+    (sizes_h,), wait = _d2h([sizes], launched, 0)
+
+    def collect():
+        wait()
+        s = sizes_h.numpy()
+        w_act = _w_act(int(s.max()), W) if B else 0
+        (words_h,), wait_words = _d2h([words[:, :w_act]], launched, 1)
+        wait_words()
+        return to_numpy(words_h), s
+
+    return collect
 
 
 # ---------------------------------------------------------------------------

@@ -20,14 +20,20 @@ _TORCH_UNSIGNED = {np.dtype(np.uint32): torch.uint32,
                    np.dtype(np.uint16): torch.uint16}
 
 
-def to_device(arr: np.ndarray, device) -> torch.Tensor:
-    """numpy array -> tensor on ``device``, u32/u16 kept as their type."""
+def to_device(arr: np.ndarray, device, non_blocking: bool = False) -> torch.Tensor:
+    """numpy array -> tensor on ``device``, u32/u16 kept as their type.
+
+    ``non_blocking`` stages a copy for a CUDA device in pinned host memory
+    and queues the h2d on the current stream without waiting for the work
+    queued before it (a blocking h2d synchronises the stream)."""
     arr = np.ascontiguousarray(arr)
     signed = _NP_SIGNED.get(arr.dtype)
-    if signed is None:
-        return torch.from_numpy(arr).to(device)
-    t = torch.from_numpy(arr.view(signed)).to(device)
-    return t.view(_TORCH_UNSIGNED[arr.dtype])
+    t = torch.from_numpy(arr if signed is None else arr.view(signed))
+    if non_blocking and torch.device(device).type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    else:
+        t = t.to(device)
+    return t if signed is None else t.view(_TORCH_UNSIGNED[arr.dtype])
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -2,6 +2,8 @@
 
 * ``gen_sequence`` — the reference benchmark's geometric-ish byte corpus
   (``bench.py:55-68``), seeded;
+* ``ckpt_tree`` — the ``ckpt_small`` checkpoint golden's tree, built
+  without ``ml_dtypes``;
 * ``parse_pl_frame`` — per-block lane sizes, payloads and normalized tables
   of an all-MODE_FSE_PL frame (``bench.py:132-155``), read with the port's
   own frame parser;
@@ -16,7 +18,7 @@ import statistics
 
 import numpy as np
 
-__all__ = ["cuda_ms", "gen_sequence", "parse_pl_frame"]
+__all__ = ["ckpt_tree", "cuda_ms", "gen_sequence", "parse_pl_frame"]
 
 
 def gen_sequence(prob: float, size: int, seed: int = 0xF5E) -> np.ndarray:
@@ -36,6 +38,30 @@ def gen_sequence(prob: float, size: int, seed: int = 0xF5E) -> np.ndarray:
     r = np.random.default_rng(seed)
     i = r.integers(0, 1 << 16, size=size, dtype=np.uint16)
     return lut[i & (LUT_SIZE - 1)]
+
+
+def ckpt_tree(seed: int):
+    """The tree of the ``ckpt_small`` checkpoint golden
+    (``tests/data/generate_golden.py:make_ckpt_tree``), with its bf16 leaf
+    a ``torch.bfloat16`` tensor instead of an ``ml_dtypes`` array. The
+    values are drawn from ``np.random.default_rng(seed)`` in the same
+    order. float64 -> bf16 rounds through float32 in both torch and
+    ``ml_dtypes``, so the leaf's bytes are the golden's."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    return {
+        "params": {
+            "w": r.standard_normal((24, 16)).astype(np.float32),
+            "b": np.zeros(16, np.float32),
+            "emb": torch.from_numpy(r.standard_normal((32, 8))).to(
+                torch.bfloat16),
+        },
+        "opt": [r.integers(-128, 128, 500).astype(np.int8),
+                (r.standard_normal(7), None)],
+        "step": np.asarray(12345, np.int64),
+        "flags": np.array([True, False, True]),
+    }
 
 
 def parse_pl_frame(frame: bytes, block_size: int, k: int):

@@ -1,0 +1,68 @@
+"""Frame-level statistics (counterpart of
+``entropy_coders_tpu/utils/metrics.py``), read with the port's own frame
+parser. ``FrameStats`` is the JAX package's dataclass, which imports no jax;
+its ``frame_stats`` imports the JAX ``frame`` and cannot be reused."""
+
+from __future__ import annotations
+
+import struct
+
+from entropy_coders_tpu.spec.histogram import NormHistogram
+from entropy_coders_tpu.utils.metrics import FrameStats
+
+from .. import frame as F
+
+__all__ = ["FrameStats", "frame_stats"]
+
+_MODE_NAMES = {F.MODE_FSE: "fse", F.MODE_RAW: "raw", F.MODE_RLE: "rle",
+               F.MODE_FSE_PL: "fse_pl"}
+
+
+def frame_stats(frame) -> FrameStats:
+    """Parse a container frame's structure without decoding payloads: block
+    modes, the table log of each FSE-coded block, header, lane-size-table
+    and payload bytes."""
+    pf = F._parse_frame(frame)
+    mode_counts: dict = {}
+    log_counts: dict = {}
+    header_bytes = len(pf.shared_hdr)
+    payload_bytes = 0
+    lane_bytes = 0
+    shared_log = (NormHistogram.read(bytes(pf.shared_hdr))[0].log2
+                  if pf.shared and pf.shared_hdr else None)
+    for i in range(pf.n_blocks):
+        mode = int(pf.modes[i])
+        name = _MODE_NAMES.get(mode, "?")
+        mode_counts[name] = mode_counts.get(name, 0) + 1
+        sec = bytes(pf.section(i))
+        if mode in (F.MODE_FSE, F.MODE_FSE_PL):
+            if pf.shared:
+                if shared_log is not None:
+                    log_counts[shared_log] = log_counts.get(shared_log, 0) + 1
+            else:
+                hist, rest = NormHistogram.read(sec)
+                log_counts[hist.log2] = log_counts.get(hist.log2, 0) + 1
+                header_bytes += len(sec) - len(rest)
+                sec = rest
+        if mode == F.MODE_FSE_PL:
+            if pf.packed:
+                (cs_len,) = struct.unpack_from("<H", sec)
+                n = 2 + (cs_len if cs_len else 2 * pf.k)
+            else:
+                n = 2 * pf.k
+            lane_bytes += n
+            sec = sec[n:]
+        payload_bytes += len(sec)
+    return FrameStats(
+        total_len=pf.total_len,
+        compressed_len=len(frame),
+        n_blocks=pf.n_blocks,
+        block_size=pf.block_size,
+        k=pf.k,
+        shared_table=pf.shared,
+        mode_counts=mode_counts,
+        header_bytes=header_bytes,
+        payload_bytes=payload_bytes,
+        lane_size_table_bytes=lane_bytes,
+        table_log_counts=dict(sorted(log_counts.items())),
+    )

@@ -1,7 +1,9 @@
 """The port imports torch and never jax: a fresh interpreter that imports
-entropy_coders_tpu_torch (and its parallel and tools packages), round-trips
-a frame on the CPU, sharded and not, and decodes one with the layout
-harness must not have loaded jax (the machine with the card has none)."""
+entropy_coders_tpu_torch (and its parallel, tools and utils packages, its
+stream, checkpoint and CLI modules), round-trips a frame on the CPU,
+sharded and not, decodes one with the layout harness, streams a file,
+round-trips a checkpoint and an interleaved payload must not have loaded
+jax (the machine with the card has none)."""
 
 import subprocess
 import sys
@@ -51,6 +53,35 @@ syms, finals, cur = H.decode_lanes_layout(
 assert not cur.any() and (finals.numpy() == blocks.reshape(2, 32, 128)[:, 31]).all()
 assert H.LAYOUT_LAUNCHES == dict.fromkeys(H.LAYOUTS, 0)
 assert T.__version__
+import os, tempfile
+from entropy_coders_tpu.spec.fse import DecodeTable, EncodeTable
+from entropy_coders_tpu.spec.histogram import NormHistogram
+from entropy_coders_tpu_torch import __main__ as cli
+from entropy_coders_tpu_torch import checkpoint, stream, utils
+from entropy_coders_tpu_torch.ops import decode_interleaved, encode_interleaved
+from entropy_coders_tpu_torch.utils import checked
+with tempfile.TemporaryDirectory() as td:
+    src, dst, back = (os.path.join(td, f) for f in ("a", "b", "c"))
+    open(src, "wb").write(data.tobytes())
+    stream.compress_file(src, dst, block_size=4096, k=128, chunk_blocks=2,
+                         device="cpu")
+    assert utils.frame_stats(open(dst, "rb").read()).n_blocks == 5
+    stream.decompress_file(dst, back, device="cpu")
+    assert open(back, "rb").read() == data.tobytes()
+    tree = {"w": torch.arange(12, dtype=torch.bfloat16).reshape(3, 4),
+            "n": [np.arange(5, dtype=np.int8), None]}
+    checkpoint.save_pytree(dst, tree, block_size=4096, k=128, device="cpu")
+    got = checkpoint.load_pytree(dst, device="cpu")
+    assert torch.equal(got["w"], tree["w"]) and got["n"][1] is None
+    assert (got["n"][0].numpy() == tree["n"][0]).all()
+hist = NormHistogram.new(data[:3000])
+payload, _ = encode_interleaved(data[:3000], 4, EncodeTable(hist), hist.log2,
+                                device="cpu")
+assert decode_interleaved(payload, 4, DecodeTable(hist), hist.log2, 3000,
+                          device="cpu") == data[:3000].tobytes()
+assert checked.checked_encode_interleaved(
+    data[:3000], 4, EncodeTable(hist), hist.log2, device="cpu")[0] == payload
+assert cli._parse_table_log("fast:0.5") == ("fast", 0.5)
 mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 print("JAX_MODULES", mods)
 """
