@@ -8,6 +8,13 @@ It builds the CUDA kernels from ``entropy_coders_tpu_torch/csrc``, holds
 each one against its plain PyTorch version on the card, then drives the
 port's ``compress``/``decompress`` on ``device="cuda"`` through every golden
 container frame and three 128 MiB operating points, and times the kernels.
+Phase ``timing`` times B1 and B2 on one and eight 16 MiB blocks and at the
+main path's launch shapes (``tools.lane_shapes``: 4 blocks of 16 MiB at
+the throughput and parity points, 512 blocks of 128 KiB at k=1024), each
+launch held against the plain versions and its time printed beside its
+bound (bytes over 3.35 TB/s against the busiest pipe's instructions, as
+the kernels' SASS counts them, the larger), the chain under the card's
+measured instruction latencies, and the share of the bound.
 Phase ``layouts`` drives the decode table-layout tools
 (``entropy_coders_tpu_torch.tools``, kernels B4/B5): ``l10_attack.run`` at
 L=10 on the 128 MiB data and ``upack_hilog.run`` at L=11 and 13 (64 MiB,
@@ -62,8 +69,10 @@ kernels; the last line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed. Any failure exits non-zero without it, as does a
 machine without CUDA or a directory without the repository.
 
-Test data comes from ``tests/data/generate_golden.py`` (jax-free). Nothing
-of JAX is imported.
+Test data comes from ``tests/data/generate_golden.py`` (its data
+generators import neither JAX nor the JAX package). Nothing of JAX and
+nothing of the JAX package is imported: the port builds its own C++ host
+library (``entropy_coders_tpu_torch.native``) beside its kernels.
 """
 
 from __future__ import annotations
@@ -154,8 +163,9 @@ def max_abs_diff(a, b) -> int:
 def phase_env():
     import torch
 
-    from entropy_coders_tpu import native
+    from entropy_coders_tpu_torch import native
     from entropy_coders_tpu_torch.kernels import build as KB
+    from entropy_coders_tpu_torch.native import build as NB
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -167,14 +177,18 @@ def phase_env():
     KB.load()
     load_s = time.perf_counter() - t0
     print(KB.last_build["log"], file=sys.stderr, flush=True)
-    check(native.available(), "native host library unavailable")
+    t0 = time.perf_counter()
+    native.load()  # raises with g++'s output when the build fails
+    host_load_s = time.perf_counter() - t0
     emit("env", card=card, cards=cards, torch=torch.__version__,
          cuda=torch.version.cuda,
          python=sys.version.split()[0],
          kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(),
          kernel_build_s=KB.last_build["seconds"], kernel_load_s=load_s,
-         native=True)
+         host_library_build_s=NB.last_build["seconds"],
+         host_library_load_s=host_load_s,
+         host_library=NB.library_path().name)
     return card
 
 
@@ -186,17 +200,17 @@ def _case_blocks(rng, B, n, alphabet):
     return rng.integers(0, alphabet, (B, n)).astype(np.uint8)
 
 
-def compare_lanes(blocks_np, L, k, device="cuda", time_kernels=False,
-                  time_plain=False):
+def compare_lanes(blocks_np, L, k, device="cuda", time_kernels=False):
     """Encode and decode ``blocks_np`` (B, (R+1)k) with the kernels and the
     plain versions on the same CUDA tensors; return the largest output
-    difference and, when asked, the kernels' and plain versions' median
-    times in ms."""
+    difference and, when asked, the kernels' median times in ms (each run
+    ``LS.REPS`` launches queued back to back)."""
     import numpy as np
     import torch
 
-    from entropy_coders_tpu.normalize import normalize_batch
+    from entropy_coders_tpu_torch.normalize import normalize_batch
     from entropy_coders_tpu_torch.ops import pl_coder as PL
+    from entropy_coders_tpu_torch.tools import lane_shapes as LS
     from entropy_coders_tpu_torch.tools.bench_data import cuda_ms
 
     B, n = blocks_np.shape
@@ -225,18 +239,13 @@ def compare_lanes(blocks_np, L, k, device="cuda", time_kernels=False,
            "max_count": int(nt.max()), "symbols": int((counts > 0).sum(1).max())}
     if time_kernels:
         out["encode_ms"], _ = cuda_ms(
-            lambda: PL.encode_lanes(blocks, tabs, k=k, L=L, W=W))
+            lambda: PL.encode_lanes(blocks, tabs, k=k, L=L, W=W),
+            reps=LS.REPS)
         out["decode_ms"], _ = cuda_ms(
-            lambda: PL.decode_lanes(words, sizes, tabs.dec, L=L, R=R))
+            lambda: PL.decode_lanes(words, sizes, tabs.dec, L=L, R=R),
+            reps=LS.REPS)
         out["encode_GBps"] = n * B / out["encode_ms"] / 1e6
         out["decode_GBps"] = n * B / out["decode_ms"] / 1e6
-    if time_plain:
-        out["encode_plain_ms"], _ = cuda_ms(
-            lambda: PL.encode_lanes_ref(blocks, tabs, k=k, L=L, W=W),
-            runs=3, warmup=1)
-        out["decode_plain_ms"], _ = cuda_ms(
-            lambda: PL.decode_lanes_ref(words, sizes, tabs.dec, L=L, R=R),
-            runs=3, warmup=1)
     return out
 
 
@@ -244,7 +253,7 @@ def phase_kernels():
     import numpy as np
     import torch
 
-    from entropy_coders_tpu.normalize import normalize_batch
+    from entropy_coders_tpu_torch.normalize import normalize_batch
     from entropy_coders_tpu_torch.ops import pl_coder as PL
 
     rng = np.random.default_rng(BENCH_SEED)
@@ -309,10 +318,14 @@ def phase_goldens(T, gg):
 
 def roundtrip(T, data, **kw):
     """compress + decompress twice each (cold, then warm); the round trip
-    is asserted. Returns (frame, timings)."""
+    is asserted. Returns (frame, timings); the timings carry the B1 and B2
+    launches of one compress + decompress."""
     import torch
 
+    from entropy_coders_tpu_torch.ops import pl_coder as PL
+
     times = {}
+    e0, d0 = PL.ENCODE_LAUNCHES, PL.DECODE_LAUNCHES
     for tag in ("cold", "warm"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -323,6 +336,8 @@ def roundtrip(T, data, **kw):
         torch.cuda.synchronize()
         times[f"decompress_s_{tag}"] = time.perf_counter() - t0
         check(out == data.tobytes(), f"round trip failed ({kw})")
+    times["launches"] = {"encode": (PL.ENCODE_LAUNCHES - e0) // 2,
+                         "decode": (PL.DECODE_LAUNCHES - d0) // 2}
     return frame, times
 
 
@@ -783,19 +798,85 @@ def phase_trace(T, data):
                for name, t, n in top])
 
 
+_SASS_LAT = {}
+
+
+def sass_and_latencies():
+    """The kernels' SASS and the card's instruction latencies, which B1's
+    and B2's bounds are counted from (``tools.lane_shapes``); taken once a
+    run."""
+    from entropy_coders_tpu_torch.kernels import build as KB
+    from entropy_coders_tpu_torch.tools import lane_shapes as LS
+
+    if not _SASS_LAT:
+        _SASS_LAT["text"] = LS.sass(KB.build())
+        _SASS_LAT["lat"] = LS.latencies()
+        emit("latencies", cycles=_SASS_LAT["lat"],
+             sass=LS.latency_sass(_SASS_LAT["text"]))
+    return _SASS_LAT["text"], _SASS_LAT["lat"]
+
+
 def phase_timing(data):
-    """Kernel vs plain-version times on device-resident tensors at the two
-    operating points: all eight 16 MiB blocks (kernels only) and one 16 MiB
-    block (kernels and plain versions, same inputs, outputs compared)."""
-    block = 16 * MIB
-    blocks = data.reshape(-1, block)
+    """Kernel times on device-resident tensors: one 16 MiB block and all
+    eight at the throughput and parity points, then one launch at each of
+    the main path's launch shapes (``tools.lane_shapes``: B=4 at the
+    throughput and parity points, 512 blocks of 128 KiB at k=1024 and the
+    default policy's table log). At a launch shape the kernels and the
+    plain versions run on the same tensors and their outputs must agree;
+    each time is printed beside its bound and the share of the bound, and
+    at the throughput shape the plain versions are timed too."""
+    import torch
+
+    from entropy_coders_tpu_torch.ops import pl_coder as PL
+    from entropy_coders_tpu_torch.tools import lane_shapes as LS
+    from entropy_coders_tpu_torch.tools.bench_data import cuda_ms
+
+    blocks = data.reshape(-1, BLOCK)
     out = {}
     for name, L, k in (("throughput", 8, 16384), ("parity", 11, 8192)):
-        one = compare_lanes(blocks[:1], L, k, time_kernels=True,
-                            time_plain=True)
+        one = compare_lanes(blocks[:1], L, k, time_kernels=True)
         full = compare_lanes(blocks, L, k, time_kernels=True)
         out[name] = {"one_block": one, "all_blocks": full}
         emit(f"timing_{name}", one_block=one, all_blocks=full)
+
+    text, lat = sass_and_latencies()
+    clocks = LS.card_clocks()
+    shapes = {}
+    for name in LS.SHAPES:
+        inp = LS.shape_inputs(name, data)
+        B, k, L, R, W = inp.B, inp.k, inp.L, inp.R, inp.W
+        plain = {
+            "encode": lambda: PL.encode_lanes_ref(inp.blocks, inp.tabs, k=k,
+                                                  L=L, W=W),
+            "decode": lambda: PL.decode_lanes_ref(inp.words, inp.sizes,
+                                                  inp.tabs.dec, L=L, R=R)}
+        got = {kind: LS.run_new(kind, inp) for kind in plain}
+        want = {kind: fn() for kind, fn in plain.items()}
+        torch.cuda.synchronize()
+        err = max(max_abs_diff(a, b) for kind in plain
+                  for a, b in zip(got[kind], want[kind]))
+        check(err == 0, f"{name} launch: kernel != plain version: {err}")
+        syms, finals, cur = got["decode"]
+        check(not bool(cur.any()), f"{name} launch: cursors not drained")
+        check(torch.equal(torch.cat([syms.reshape(B, -1), finals], 1),
+                          inp.blocks), f"{name} launch: round trip")
+        row = {"B": B, "k": k, "L": L, "R": R, "W": W, "max_abs_err": err,
+               "threads": {kind: PL.lane_config(kind, k, L)[0]
+                           for kind in plain}}
+        for kind in plain:
+            ms, runs = cuda_ms(lambda: LS.run_new(kind, inp), reps=LS.REPS)
+            st = LS.kernel_stats(kind, k, L, text, lat)
+            b = LS.shape_bound(kind, inp, st, clocks["sm_max_mhz"])
+            row[kind] = {"ms": ms, "ms_runs": runs, **st, **b,
+                         "share_of_bound": b["bound_ms"] / ms}
+            if name == "throughput":  # the comparison above warmed it up
+                row[kind]["plain_ms"] = cuda_ms(plain[kind], runs=2,
+                                                warmup=0)[0]
+        row["clocks"] = {"before": clocks, "after": LS.card_clocks()}
+        shapes[name] = row
+        emit(f"timing_shape_{name}", **row)
+        del inp, got, want
+    out["shapes"] = shapes
     return out
 
 
@@ -863,8 +944,11 @@ def phase_layouts(data):
     flat table's co-resident CTAs per SM at L = 10..15. Returns (launches
     per layout, largest difference, the L=10 results, the one-block times
     at L=10)."""
+    import torch
+
     from entropy_coders_tpu_torch.tools import l10_attack as LA
     from entropy_coders_tpu_torch.tools import l10_attack_harness as H
+    from entropy_coders_tpu_torch.tools import lane_shapes as LS
     from entropy_coders_tpu_torch.tools import upack_hilog as UH
 
     t0 = time.perf_counter()
@@ -884,7 +968,21 @@ def phase_layouts(data):
     check(all(r["eligible"] for r in points["L10_bench"].values()),
           f"L=10: a layout did not apply: {points['L10_bench']}")
 
-    worst, one10 = layout_vs_plain(LA.lane_inputs(data, 10), full=True)
+    inp10 = LA.lane_inputs(data, 10)
+    worst, one10 = layout_vs_plain(inp10, full=True)
+    # the work of one block's decode at L=10, whatever the table's layout,
+    # as B1's instructions count it
+    k10 = inp10.sizes.shape[1]
+    bound10 = LS.bound(
+        "decode", B=1, k=k10, L=10, R=inp10.R,
+        W=inp10.words.shape[1], sizes=inp10.sizes[:1],
+        stats=LS.kernel_stats("decode", k10, 10, *sass_and_latencies()),
+        sm_max_mhz=LS.card_clocks()["sm_max_mhz"],
+        n_sm=torch.cuda.get_device_properties(0).multi_processor_count)
+    for name in one10:
+        one10[name].update(bound_ms=bound10["bound_ms"],
+                           bound_by=bound10["bound_by"])
+    del inp10
     for L in (11, 13):
         err, _ = layout_vs_plain(LA.lane_inputs(UH.corpus(64 * MIB), L))
         worst = max(worst, err)
@@ -981,7 +1079,7 @@ def phase_ring(data):
     import numpy as np
     import torch
 
-    from entropy_coders_tpu.normalize import normalize_batch
+    from entropy_coders_tpu_torch.normalize import normalize_batch
     from entropy_coders_tpu_torch.ops import pl_coder as PL
     from entropy_coders_tpu_torch.parallel import rdma as R
     from entropy_coders_tpu_torch.tools.bench_data import cuda_ms
@@ -1196,7 +1294,7 @@ def multihost_worker(port: int, num: int, rank: int) -> int:
 def run_single(T, PL, gg, data):
     """The single-device phases; returns the main path's launch counts,
     the kernels' largest difference from their plain versions and the
-    one-block timings."""
+    timings at the main path's launch shapes."""
     worst = phase_kernels()
 
     # the main path: every count starts at 0 here, and only the
@@ -1223,7 +1321,7 @@ def run_single(T, PL, gg, data):
     timing = phase_timing(data)
     worst = max([worst] + [timing[p][s]["max_abs_err"]
                            for p in timing for s in timing[p]])
-    return launches, worst, timing["throughput"]["one_block"]
+    return launches, worst, timing["shapes"]
 
 
 def run_parallel(T, PL, R, data):
@@ -1251,43 +1349,69 @@ def run_parallel(T, PL, R, data):
     return ring_err, ring_full, par
 
 
-def print_kernels(launches, worst, one, ring_err, ring_full, par, layouts):
+def _lane_row(name, kind, src, replaces, launches, worst, shapes):
+    """B1 or B2 in the kernels line: its time, plain version and bound at
+    the throughput launch shape, and every launch shape's time beside its
+    bound."""
+    tp = shapes["throughput"]
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches, "max_abs_err": worst,
+            "ms": tp[kind]["ms"], "plain_ms": tp[kind]["plain_ms"],
+            "bound_ms": tp[kind]["bound_ms"], "bound_by": tp[kind]["bound_by"],
+            "library_ms": None,
+            "launch_shape": {key: tp[key] for key in ("B", "k", "R", "L")}
+            | {"threads": tp["threads"][kind]},
+            "shapes": {s: {"B": r["B"], "k": r["k"], "R": r["R"], "L": r["L"],
+                           "threads": r["threads"][kind],
+                           "ms": r[kind]["ms"],
+                           "bound_ms": r[kind]["bound_ms"],
+                           "bound_by": r[kind]["bound_by"],
+                           "share_of_bound": r[kind]["share_of_bound"]}
+                       for s, r in shapes.items()}}
+
+
+def print_kernels(launches, worst, shapes, ring_err, ring_full, par, layouts):
     """The line before the last: every kernel with its main-path launches,
-    its largest difference from its plain version and its times. B4 and B5
-    are one kernel (``pl_decode_layout.cu``): B4's row counts the layouts
-    that ``tools/l10_attack.py`` defines (fused, nosym) and times fused,
-    B5's the layouts the harness serves (flat, split, upack) and times
-    split, each against its plain version on one 16 MiB block at L=10;
-    ``layouts`` gives every layout's ms on all eight blocks at L=10."""
+    its largest difference from its plain version, its times and its
+    bound. B1 and B2 are timed at the throughput launch shape (B=4 blocks
+    of 16 MiB), each launch shape beside it. B3 at n=8 virtual ranks (no
+    one PyTorch call gathers n chunks into n outputs on one card; NCCL
+    needs a rank a card). B4 and B5 are one kernel
+    (``pl_decode_layout.cu``): B4's row counts the layouts that
+    ``tools/l10_attack.py`` defines (fused, nosym) and times fused, B5's
+    the layouts the harness serves (flat, split, upack) and times split,
+    each against its plain version on one 16 MiB block at L=10;
+    ``layouts`` gives every layout's ms on all eight blocks at L=10. No
+    PyTorch call computes B1, B2, B4 or B5."""
     lay_launches, lay_err, lay10, one10 = layouts
     lay_ms = {n: r["ms"] for n, r in lay10.items()}
     src = "entropy_coders_tpu_torch/csrc"
     print(json.dumps({"kernels": [
-        {"name": "pl_decode (B1)", "route": "cuda",
-         "source": f"{src}/pl_decode.cu",
-         "replaces": "entropy_coders_tpu/ops/pl_coder.py:285",
-         "launches": launches["decode"], "max_abs_err": worst,
-         "ms": one["decode_ms"], "plain_ms": one["decode_plain_ms"]},
-        {"name": "pl_encode (B2)", "route": "cuda",
-         "source": f"{src}/pl_encode.cu",
-         "replaces": "entropy_coders_tpu/ops/pl_coder.py:1075",
-         "launches": launches["encode"], "max_abs_err": worst,
-         "ms": one["encode_ms"], "plain_ms": one["encode_plain_ms"]},
+        _lane_row("pl_decode (B1)", "decode", f"{src}/pl_decode.cu",
+                  "entropy_coders_tpu/ops/pl_coder.py:285",
+                  launches["decode"], worst, shapes),
+        _lane_row("pl_encode (B2)", "encode", f"{src}/pl_encode.cu",
+                  "entropy_coders_tpu/ops/pl_coder.py:1075",
+                  launches["encode"], worst, shapes),
         {"name": "ring_all_gather (B3)", "route": "cuda",
          "source": f"{src}/ring.cu",
          "replaces": "entropy_coders_tpu/parallel/rdma.py:46",
          "launches": par["ring"], "max_abs_err": ring_err,
-         "ms": ring_full["ms"], "plain_ms": ring_full["plain_ms"]},
+         "ms": ring_full["ms"], "plain_ms": ring_full["plain_ms"],
+         "bound_ms": ring_full["hbm_bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
         {"name": "pl_decode_layout fused/nosym (B4)", "route": "cuda",
          "source": f"{src}/pl_decode_layout.cu",
          "replaces": "tools/l10_attack.py:94",
          "launches": lay_launches["fused"] + lay_launches["nosym"],
-         "max_abs_err": lay_err, **one10["fused"], "layouts": lay_ms},
+         "max_abs_err": lay_err, **one10["fused"], "library_ms": None,
+         "layouts": lay_ms},
         {"name": "pl_decode_layout flat/split/upack (B5)", "route": "cuda",
          "source": f"{src}/pl_decode_layout.cu",
          "replaces": "tools/l10_attack_harness.py:24",
          "launches": sum(lay_launches[n] for n in ("flat", "split", "upack")),
-         "max_abs_err": lay_err, **one10["split"], "layouts": lay_ms},
+         "max_abs_err": lay_err, **one10["split"], "library_ms": None,
+         "layouts": lay_ms},
     ]}), flush=True)
 
 
@@ -1314,10 +1438,10 @@ def main() -> int:
         phase_env()
         gg = load_testdata()
         data = gg.gen_sequence(0.2, BENCH_SIZE, BENCH_SEED)
-        launches, worst, one = run_single(T, PL, gg, data)
+        launches, worst, shapes = run_single(T, PL, gg, data)
         layouts = phase_layouts(data)
         ring_err, ring_full, par = run_parallel(T, PL, R, data)
-        print_kernels(launches, worst, one, ring_err, ring_full, par,
+        print_kernels(launches, worst, shapes, ring_err, ring_full, par,
                       layouts)
     except Exception:  # report any failing phase, print no result
         traceback.print_exc()

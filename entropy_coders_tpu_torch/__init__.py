@@ -17,12 +17,14 @@ the reference it is held against.
 * ``parallel``  — block sharding over several devices, multi-process
   frames, the ring collective;
 * ``kernels``   — nvcc build + ctypes load of ``csrc/*.cu``;
+* ``native``    — the C++ host codec (tables, header I/O, lane repack),
+  built with g++ at first use; ``normalize`` and ``constants`` beside it;
 * ``tools``     — the decode table-layout measurement scripts and their
   kernel (``python -m entropy_coders_tpu_torch.tools.l10_attack``).
 
-It imports ``torch`` and never ``jax``: the jax-free parts of the JAX
-package (``normalize``, ``native``, ``spec``, ``constants``) are reused as
-they are.
+It imports ``torch`` and never ``jax``, and nothing of the JAX package: the
+parts it needs that import no jax (``normalize``, ``native``,
+``constants``) are copied into it.
 """
 
 from .frame import compress, decompress

@@ -7,8 +7,8 @@ shared-stream k-way interleave, MODE_FSE; or the RAW/RLE escapes).
 
 Pipeline per frame:
   host split -> one h2d of the full blocks -> device histogram -> host
-  normalize (``entropy_coders_tpu.normalize``) + header write -> C++ table
-  build -> per-lane encode kernel (B2) -> d2h -> C++ lane merge -> frame
+  normalize (``normalize``) + header write -> C++ table build (``native``)
+  -> per-lane encode kernel (B2) -> d2h -> C++ lane merge -> frame
   assembly. Decode mirrors it through the C++ lane split and the per-lane
   decode kernel (B1).
 
@@ -40,10 +40,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from entropy_coders_tpu.constants import (TABLE_LOG_DEFAULT, TABLE_LOG_MAX,
-                                          TABLE_LOG_MIN)
-from entropy_coders_tpu.normalize import normalize_batch
-
+from . import native
+from .constants import TABLE_LOG_DEFAULT, TABLE_LOG_MAX, TABLE_LOG_MIN
+from .normalize import normalize_batch
 from .ops import pl_coder as PL
 from .ops.coder import blocks_to_syms, decode_core, encode_core, encode_layout
 from .ops.histogram import histogram_blocks
@@ -180,7 +179,7 @@ def compress(
     on CUDA devices, True/False to force. ``table_log`` defaults to
     PL_TABLE_LOG on the lanes path and TABLE_LOG_DEFAULT otherwise; an int,
     ``"auto"``, ``"fast"`` or ``("fast", eps)`` as in
-    ``entropy_coders_tpu.normalize.normalize_batch``. ``checksum`` appends a
+    ``normalize.normalize_batch``. ``checksum`` appends a
     per-block crc32 table, verified on decompress. ``bit_pack``
     (FLAG_PACKED) packs the lane streams at bit granularity and
     FSE-compresses the lane-size table. ``shared_hist`` (with
@@ -298,15 +297,15 @@ def _tl(table) -> int:
 
 def _write_header(table, log2: int) -> bytes:
     """Zstd-format histogram header bytes (C++ writer)."""
-    return PL.require_native().write_header(np.asarray(table, np.int32),
-                                            int(log2), _tl(table))
+    return native.write_header(np.asarray(table, np.int32), int(log2),
+                               _tl(table))
 
 
 def _read_block_header(sec: bytes):
     """Parse a histogram header off the front of a block section. Returns
     (table (256,) int32, log2, payload); raises ValueError on a malformed
     header."""
-    table, log2, _tl_, n = PL.require_native().read_header(sec)
+    table, log2, _tl_, n = native.read_header(sec)
     return table, log2, sec[n:]
 
 
@@ -316,7 +315,7 @@ def _pack_size_table(st: bytes) -> bytes:
     LE bytes) or the raw table (cs_len == 0, incompressible or degenerate
     fallback)."""
     try:
-        cs = PL.require_native().compress(st, k=2)
+        cs = native.compress(st, k=2)
         if 0 < len(cs) < min(len(st), 1 << 16):
             return struct.pack("<H", len(cs)) + cs
     except ValueError:
@@ -339,8 +338,7 @@ def _unpack_size_table(sec: bytes, k: int) -> tuple[np.ndarray, bytes]:
         raise ValueError("truncated lane size table")
     # max_out bounds a crafted low-entropy stream: the expected output is
     # exactly 2k bytes, anything bigger is corrupt
-    st = PL.require_native().decompress(sec[2: 2 + cs_len], k=2,
-                                        max_out=2 * k + 8)
+    st = native.decompress(sec[2: 2 + cs_len], k=2, max_out=2 * k + 8)
     if len(st) != 2 * k:
         raise ValueError("size table length mismatch")
     return np.frombuffer(st, "<u2").astype(np.int32), sec[2 + cs_len:]
@@ -439,8 +437,7 @@ def _encode_group_fse(blocks, norm_tables, l2, k, shared_table, sections,
     table log ``l2`` on ``dev`` (ops.coder.encode_core)."""
     m, R, valid, finish_slots, W = layout
     syms, init_syms = blocks_to_syms(blocks, m, R, k)
-    table, tt_bits, tt_fs = PL.require_native().build_encode_tables(
-        norm_tables, l2)
+    table, tt_bits, tt_fs = native.build_encode_tables(norm_tables, l2)
     words, total_bits = encode_core(
         torch.from_numpy(np.ascontiguousarray(syms)).to(dev),
         torch.from_numpy(valid).to(dev),
@@ -778,7 +775,7 @@ def _decode_group(items, raw_len, log2, pf, out, out_base, dev):
         words[j] = pb.view(np.uint32)
         norm_tables[j] = nt
 
-    packed = PL.require_native().build_decode_tables(norm_tables, log2)
+    packed = native.build_decode_tables(norm_tables, log2)
     m = raw_len - k
     R = max(_cdiv(m, k), 1) + 1
     syms, emit_count, finals, done, _c = decode_core(

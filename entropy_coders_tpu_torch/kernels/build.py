@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-The sources in ``entropy_coders_tpu_torch/csrc/*.cu`` have a plain C
-interface (no PyTorch headers), so they compile in seconds: one nvcc per
-source, all started together, then one link:
+The sources in ``entropy_coders_tpu_torch/csrc/*.cu`` (and the headers
+they share, ``*.cuh``) have a plain C interface (no PyTorch headers), so
+they compile in seconds: one nvcc per source, all started together, then
+one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
          -Xcompiler -fPIC -Xptxas -v -c -o <src>.o csrc/<src>.cu   # each
@@ -38,16 +39,22 @@ LINK_FLAGS = [*ARCH, "-shared"]
 # c_void_p (a plain int would be cut to 32 bits), every size a c_int.
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # words, sizes, dtab, syms, finals, cursors, B, W, k, L, R, stream
-    "ect_pl_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # words, sizes, dtab, syms, finals, cursors, B, W, k, L, R, T, RF,
+    # stream
+    "ect_pl_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P],
     # words, sizes, plane0, plane1, syms, finals, cursors, B, W, k, L, R,
     # layout, stream
     "ect_pl_decode_layout": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _P],
     # layout, L -> co-resident CTAs per SM on the current device (or -error)
     "ect_pl_decode_layout_occupancy": [_I, _I],
-    # blocks, tt_bits, tt_fs, next_state, words, sizes, B, k, L, R, W, stream
-    "ect_pl_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # blocks, tt_bits, tt_fs, next_state, words, sizes, B, k, L, R, W, T, F,
+    # stream
+    "ect_pl_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P],
+    # op, iters, host long long* -> cycles of a dependent chain (latency.cu)
+    "ect_latency": [_I, _I, _P],
     # ins[n], outs[n], accs[n], flags[n] (host arrays of device pointers),
     # n, chunk_bytes, m, rank_lo, n_launch, vec16, sys, stream
     "ect_ring": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P],
@@ -75,7 +82,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libect_torch_{h.hexdigest()[:16]}.so"

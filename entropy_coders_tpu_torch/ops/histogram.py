@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from entropy_coders_tpu.constants import ALPHABET
+from ..constants import ALPHABET
 
 _CHUNK_BYTES = 1 << 24  # bytes of input per bincount (128 MiB of int64 index)
 

@@ -26,10 +26,9 @@ is launched and its d2h queued on a side stream, and a ``collect`` closure
 waits on that chunk's event alone (the container dispatches every chunk,
 then drains them in order).
 
-Tables are flat (``tables_from_norm``), built on the host by the C++ library
-of the JAX package (``entropy_coders_tpu.native``), bit-identical to
-``spec``. None of the TPU's gather-row layouts, epochs or fusion carry over:
-they change no wire byte.
+Tables are flat (``tables_from_norm``), built on the host by the port's C++
+library (``native``), bit-identical to the reference's. None of the TPU's
+gather-row layouts, epochs or fusion carry over: they change no wire byte.
 """
 
 from __future__ import annotations
@@ -39,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import native
 from .unsigned import as_int64, int64_to_u32, signed_view, to_device, to_numpy
 
 __all__ = [
@@ -53,9 +53,9 @@ __all__ = [
     "encode_lanes_norm",
     "encode_lanes_ref",
     "encode_w_bound",
+    "lane_config",
     "lane_merge_batch",
     "lane_split_batch",
-    "require_native",
     "tables_from_norm",
 ]
 
@@ -66,17 +66,6 @@ DECODE_BLOCKS = 0    # blocks decoded by those B1 launches
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def require_native():
-    """The JAX package's C++ host library (table builds, header I/O, lane
-    repack). The port has no numpy fallback for it: raise with its load
-    error when it cannot be built or loaded."""
-    from entropy_coders_tpu import native
-
-    if not native.available():
-        raise RuntimeError(f"native codec unavailable: {native._load_error}")
-    return native
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +89,6 @@ def tables_from_norm(norm_tables: np.ndarray, L: int, device) -> LaneTables:
     queued without waiting for the card (``unsigned.to_device``'s
     ``non_blocking``), so a lazy call dispatches behind the chunks before
     it."""
-    native = require_native()
     nt = np.ascontiguousarray(norm_tables, np.int32)
     table, tt_bits, tt_fs = native.build_encode_tables(nt, int(L))
     dec = native.build_decode_tables(nt, int(L))
@@ -125,6 +113,42 @@ def _launch(fn, *args) -> None:
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data is not 16-byte aligned (the
+    kernels move tables and tiles in 16-byte vectors)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_index_range(*, bound: int = 1 << 31, **extents) -> None:
+    """The kernels index a block's arrays in 32 bits: raise when an extent
+    reaches ``bound`` (2^31 for a signed index, 2^32 for an unsigned byte
+    offset)."""
+    for name, n in extents.items():
+        if n >= bound:
+            raise ValueError(f"{name}={n} is past the kernels' 32-bit "
+                             "index range")
+
+
+def lane_config(kind: str, k: int, L: int) -> tuple[int, int]:
+    """(T, group) that B1 (``kind="decode"``) or B2 (``"encode"``) launch
+    with for k lanes at table log L. T is the threads of a CTA, each a lane
+    of one block: 512 from L = 13, where the 2^L-entry table leaves room
+    for few CTAs an SM, so that one table copy serves more warps; else 256;
+    the largest of these that divides k, down to 128. On an H100 at the
+    main path's launch shapes (``tools/lane_shapes.py --sweep``), 512 took
+    27-36% off both kernels at L=15 and 1-6% at L=13, and lost up to 40% at
+    L=11 (32,768 lanes fill only half the SMs with 512-thread CTAs). The
+    group is the rounds between B2's flushes, 4 while four rounds of at
+    most L bits fit 32 (L <= 8) and else 2, or between B1's refill checks,
+    2 while two rounds take at most 20 bits (L <= 10) and else 1."""
+    T = 512 if L >= 13 else 256
+    while k % T:
+        T //= 2
+    if kind == "encode":
+        return T, 4 if L <= 8 else 2
+    return T, 2 if L <= 10 else 1
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +221,8 @@ def decode_lanes(words, sizes, dec, *, L: int, R: int):
         return decode_lanes_ref(words, sizes, dec, L=L, R=R)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    _check_index_range(W_k=W * k, R_k=R * k)
+    words, sizes, dec = map(_aligned, (words, sizes, dec))
     syms = torch.empty((B, R, k), dtype=torch.uint8, device=dev)
     finals = torch.empty((B, k), dtype=torch.uint8, device=dev)
     cursors = torch.empty((B, k), dtype=torch.int32, device=dev)
@@ -209,6 +235,7 @@ def decode_lanes(words, sizes, dec, *, L: int, R: int):
         _launch(lib.ect_pl_decode, words.data_ptr(), sizes.data_ptr(),
                 dec.data_ptr(), syms.data_ptr(), finals.data_ptr(),
                 cursors.data_ptr(), B, W, k, L, R,
+                *lane_config("decode", k, L),
                 torch.cuda.current_stream(dev).cuda_stream)
     DECODE_LAUNCHES += 1
     DECODE_BLOCKS += B
@@ -390,9 +417,15 @@ def encode_lanes(blocks, tables: LaneTables, *, k: int, L: int, W: int):
     _check(tables.next_state, "next_state", (B, 1 << L), torch.uint16, dev)
     if dev.type == "cpu":
         return encode_lanes_ref(blocks, tables, k=k, L=L, W=W)
+    # B2 keeps a lane's next word as an unsigned 32-bit byte offset
+    _check_index_range(n_plus_k=n + k)
+    _check_index_range(word_bytes=4 * W * k, bound=1 << 32)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    words = torch.zeros((B, W, k), dtype=torch.int32, device=dev).view(
+    blocks = _aligned(blocks)
+    tables = LaneTables(*map(_aligned, tables))
+    # B2 writes every row, the zeros past each stream included
+    words = torch.empty((B, W, k), dtype=torch.int32, device=dev).view(
         torch.uint32)
     sizes = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B == 0:
@@ -405,6 +438,7 @@ def encode_lanes(blocks, tables: LaneTables, *, k: int, L: int, W: int):
                 tables.tt_bits.data_ptr(), tables.tt_fs.data_ptr(),
                 tables.next_state.data_ptr(), words.data_ptr(),
                 sizes.data_ptr(), B, k, L, R, W,
+                *lane_config("encode", k, L),
                 torch.cuda.current_stream(dev).cuda_stream)
     ENCODE_LAUNCHES += 1
     return words, sizes
@@ -472,14 +506,13 @@ def lane_merge_batch(words: np.ndarray, sizes_bits: np.ndarray,
     """Batched lane merge of a block group: ``words (B, W, k)`` uint32,
     ``sizes_bits (B, k)`` -> one wire payload per block (byte-aligned lanes,
     or bit-packed with ``pack_bits``), in one OpenMP-parallel native call."""
-    return require_native().lane_merge_batch(np.asarray(words),
-                                             np.asarray(sizes_bits),
-                                             pack_bits)
+    return native.lane_merge_batch(np.asarray(words), np.asarray(sizes_bits),
+                                   pack_bits)
 
 
 def lane_split_batch(payloads, sizes_bits: np.ndarray, k: int, W: int,
                      pack_bits: bool = False) -> np.ndarray:
     """Inverse of ``lane_merge_batch``: the group's ``(B, W, k)`` uint32
     kernel layout from its wire payloads, in one native call."""
-    return require_native().lane_split_batch(payloads, np.asarray(sizes_bits),
-                                             k, W, pack_bits)
+    return native.lane_split_batch(payloads, np.asarray(sizes_bits), k, W,
+                                   pack_bits)

@@ -102,11 +102,13 @@ def parse_pl_frame(frame: bytes, block_size: int, k: int):
     return sizes, payloads, norm_tables, L, bool(pf.packed)
 
 
-def cuda_ms(fn, runs: int = 7, warmup: int = 2):
+def cuda_ms(fn, runs: int = 7, warmup: int = 2, reps: int = 1):
     """Median device time of ``fn`` in ms over ``runs`` runs after
     ``warmup``, each bracketed by CUDA events on the current stream; also
-    every run's time. Raises without a CUDA device: there is no host-clock
-    fallback."""
+    every run's time. With ``reps`` > 1 a run calls ``fn`` that many times
+    between its events and counts the mean, so the host's time to launch a
+    kernel hides behind the kernels queued before it. Raises without a CUDA
+    device: there is no host-clock fallback."""
     import torch
 
     if not torch.cuda.is_available():
@@ -119,8 +121,9 @@ def cuda_ms(fn, runs: int = 7, warmup: int = 2):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times), times

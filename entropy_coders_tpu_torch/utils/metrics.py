@@ -1,18 +1,45 @@
 """Frame-level statistics (counterpart of
 ``entropy_coders_tpu/utils/metrics.py``), read with the port's own frame
-parser. ``FrameStats`` is the JAX package's dataclass, which imports no jax;
-its ``frame_stats`` imports the JAX ``frame`` and cannot be reused."""
+parser and header reader: a per-frame breakdown of the container format
+(FORMAT.md), with the same fields as the JAX package's ``FrameStats``."""
 
 from __future__ import annotations
 
 import struct
-
-from entropy_coders_tpu.spec.histogram import NormHistogram
-from entropy_coders_tpu.utils.metrics import FrameStats
+from dataclasses import dataclass, field
 
 from .. import frame as F
 
 __all__ = ["FrameStats", "frame_stats"]
+
+
+
+@dataclass
+class FrameStats:
+    total_len: int
+    compressed_len: int
+    n_blocks: int
+    block_size: int
+    k: int
+    shared_table: bool
+    mode_counts: dict
+    header_bytes: int
+    payload_bytes: int
+    lane_size_table_bytes: int
+    # per-block table logs of the FSE-coded blocks, as {log: count}: what
+    # the "auto"/"fast" per-block policies chose
+    table_log_counts: dict = field(default_factory=dict)
+
+    @property
+    def ratio(self) -> float:
+        return self.compressed_len / max(self.total_len, 1)
+
+    @property
+    def overhead(self) -> float:
+        """Container + header bytes as a fraction of the compressed size."""
+        extra = self.compressed_len - self.payload_bytes
+        return extra / max(self.compressed_len, 1)
+
 
 _MODE_NAMES = {F.MODE_FSE: "fse", F.MODE_RAW: "raw", F.MODE_RLE: "rle",
                F.MODE_FSE_PL: "fse_pl"}
@@ -28,7 +55,7 @@ def frame_stats(frame) -> FrameStats:
     header_bytes = len(pf.shared_hdr)
     payload_bytes = 0
     lane_bytes = 0
-    shared_log = (NormHistogram.read(bytes(pf.shared_hdr))[0].log2
+    shared_log = (F._read_block_header(bytes(pf.shared_hdr))[1]
                   if pf.shared and pf.shared_hdr else None)
     for i in range(pf.n_blocks):
         mode = int(pf.modes[i])
@@ -40,8 +67,8 @@ def frame_stats(frame) -> FrameStats:
                 if shared_log is not None:
                     log_counts[shared_log] = log_counts.get(shared_log, 0) + 1
             else:
-                hist, rest = NormHistogram.read(sec)
-                log_counts[hist.log2] = log_counts.get(hist.log2, 0) + 1
+                _, log2, rest = F._read_block_header(sec)
+                log_counts[log2] = log_counts.get(log2, 0) + 1
                 header_bytes += len(sec) - len(rest)
                 sec = rest
         if mode == F.MODE_FSE_PL:

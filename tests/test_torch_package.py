@@ -2,11 +2,20 @@
 entropy_coders_tpu_torch (and its parallel, tools and utils packages, its
 stream, checkpoint and CLI modules), round-trips a frame on the CPU,
 sharded and not, decodes one with the layout harness, streams a file,
-round-trips a checkpoint and an interleaved payload must not have loaded
-jax (the machine with the card has none)."""
+round-trips a checkpoint and an interleaved payload (its tables from the
+port's own host library) must not have loaded jax (the machine with the
+card has none). The JAX package is blocked in ``sys.modules`` before the
+port is imported, so any import of it fails the probe.
 
+The sources the port builds at first use (its CUDA kernels, the headers
+they include, its C++ host library) must be package data in
+``pyproject.toml``, or an installed package cannot build them."""
+
+import fnmatch
+import re
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
 
 import pytest
@@ -17,6 +26,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 _PROBE = """
 import sys
+sys.modules["entropy_coders_tpu"] = None  # any import of it now fails
 import numpy as np
 import torch
 import entropy_coders_tpu_torch as T
@@ -54,8 +64,8 @@ assert not cur.any() and (finals.numpy() == blocks.reshape(2, 32, 128)[:, 31]).a
 assert H.LAYOUT_LAUNCHES == dict.fromkeys(H.LAYOUTS, 0)
 assert T.__version__
 import os, tempfile
-from entropy_coders_tpu.spec.fse import DecodeTable, EncodeTable
-from entropy_coders_tpu.spec.histogram import NormHistogram
+from types import SimpleNamespace
+from entropy_coders_tpu_torch import native
 from entropy_coders_tpu_torch import __main__ as cli
 from entropy_coders_tpu_torch import checkpoint, stream, utils
 from entropy_coders_tpu_torch.ops import decode_interleaved, encode_interleaved
@@ -74,15 +84,20 @@ with tempfile.TemporaryDirectory() as td:
     got = checkpoint.load_pytree(dst, device="cpu")
     assert torch.equal(got["w"], tree["w"]) and got["n"][1] is None
     assert (got["n"][0].numpy() == tree["n"][0]).all()
-hist = NormHistogram.new(data[:3000])
-payload, _ = encode_interleaved(data[:3000], 4, EncodeTable(hist), hist.log2,
-                                device="cpu")
-assert decode_interleaved(payload, 4, DecodeTable(hist), hist.log2, 3000,
+nt, l2 = native.normalize(np.bincount(data[:3000], minlength=256), 3000)
+table, tt_bits, tt_fs = native.build_encode_tables(nt[None], l2)
+enc = SimpleNamespace(table=table[0], tt_bits=tt_bits[0],
+                      tt_find_state=tt_fs[0])
+dec = SimpleNamespace(packed=native.build_decode_tables(nt[None], l2)[0])
+payload, _ = encode_interleaved(data[:3000], 4, enc, l2, device="cpu")
+assert decode_interleaved(payload, 4, dec, l2, 3000,
                           device="cpu") == data[:3000].tobytes()
 assert checked.checked_encode_interleaved(
-    data[:3000], 4, EncodeTable(hist), hist.log2, device="cpu")[0] == payload
+    data[:3000], 4, enc, l2, device="cpu")[0] == payload
 assert cli._parse_table_log("fast:0.5") == ("fast", 0.5)
-mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+              or (m.startswith("entropy_coders_tpu") and sys.modules[m]
+                  and not m.startswith("entropy_coders_tpu_torch")))
 print("JAX_MODULES", mods)
 """
 
@@ -92,3 +107,40 @@ def test_port_never_imports_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "JAX_MODULES []" in r.stdout, r.stdout
+
+
+PORT = ROOT / "entropy_coders_tpu_torch"
+
+
+def _shipped(path: Path) -> bool:
+    """Whether ``path`` matches a package-data glob of a package holding it."""
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    for pkg, globs in data["tool"]["setuptools"]["package-data"].items():
+        root = ROOT / pkg.replace(".", "/")
+        if root in path.parents:
+            rel = path.relative_to(root).as_posix()
+            if any(fnmatch.fnmatch(rel, g) for g in globs):
+                return True
+    return False
+
+
+def _built_sources() -> list:
+    """Every source the port compiles at first use, and every file they
+    ``#include "..."``."""
+    srcs = sorted((PORT / "csrc").glob("*.cu")) + [PORT / "native" / "fse_native.cpp"]
+    out = set(srcs)
+    for src in srcs:
+        for name in re.findall(r'^#include "([^"]+)"', src.read_text(), re.M):
+            out.add((src.parent / name).resolve())
+    return sorted(out)
+
+
+@pytest.mark.parametrize("path", _built_sources(),
+                         ids=lambda p: p.relative_to(PORT).as_posix())
+def test_built_source_is_package_data(path):
+    assert path.exists(), path
+    assert _shipped(path), f"{path} is not package data in pyproject.toml"
+
+
+def test_package_data_check_sees_a_missing_glob():
+    assert not _shipped(PORT / "csrc" / "missing.hpp")

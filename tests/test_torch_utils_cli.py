@@ -5,6 +5,7 @@ against the JAX package's, on the CPU (``ECT_PLATFORM=cpu``).
 Tolerance: exact. ``FrameStats`` are compared field by field, CLI output
 files byte for byte, ``stat`` output line for line."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -29,6 +30,13 @@ FRAME_CASES = [c for c in json.loads((GOLDEN / "manifest.json").read_text())
                if c["codec"] == "frame"]
 
 
+def _same_stats(st, want) -> bool:
+    """The port's ``FrameStats`` and the JAX package's (two dataclasses
+    with the same fields) agree field by field and property by property."""
+    return (dataclasses.asdict(st) == dataclasses.asdict(want)
+            and (st.ratio, st.overhead) == (want.ratio, want.overhead))
+
+
 def _real_data(n=16 << 10) -> bytes:
     """Real text from the repo (SURVEY.md, README.md, FORMAT.md), cycled
     to n bytes."""
@@ -41,7 +49,7 @@ def _real_data(n=16 << 10) -> bytes:
 def test_frame_stats_equal_jax_on_goldens(case):
     frame = (GOLDEN / case["file"]).read_bytes()
     st = utils.frame_stats(frame)
-    assert st == jax_frame_stats(frame)
+    assert _same_stats(st, jax_frame_stats(frame))
     assert st.compressed_len == len(frame)
 
 
@@ -50,7 +58,7 @@ def test_frame_stats_real_text():
     comp = F.compress(data, block_size=16 << 10, k=128, lanes=True,
                       device="cpu")
     st = utils.frame_stats(comp)
-    assert st == jax_frame_stats(comp)
+    assert _same_stats(st, jax_frame_stats(comp))
     assert st.mode_counts.get("fse_pl", 0) == 2 and st.ratio < 0.75
     assert sum(st.table_log_counts.values()) == 2
 
