@@ -8,13 +8,26 @@ It builds the CUDA kernels from ``entropy_coders_tpu_torch/csrc``, holds
 each one against its plain PyTorch version on the card, then drives the
 port's ``compress``/``decompress`` on ``device="cuda"`` through every golden
 container frame and three 128 MiB operating points, and times the kernels.
+Phase ``device_host`` holds the lane repack (D1 ``ect_lane_merge``, D2
+``ect_lane_split``) and the table build (D3 ``ect_build_tables``) against
+their plain versions and the port's C++ host library, exactly
+(``tools.device_host``: both wire forms, k in {128, 1024, 8192, 16384},
+zero-size and one-byte lanes, sizes on a word boundary, guard bits, L =
+5..15, tables with -1 counts, 512 tables, equal rows). Phase ``routes``
+runs the throughput, parity and default points with the repack on the card
+and in C++ and with the tables built on the card and on the host, in turns,
+wall times side by side, every frame's bytes and each route's launch counts
+checked.
 Phase ``timing`` times B1 and B2 on one and eight 16 MiB blocks and at the
 main path's launch shapes (``tools.lane_shapes``: 4 blocks of 16 MiB at
 the throughput and parity points, 512 blocks of 128 KiB at k=1024), each
 launch held against the plain versions and its time printed beside its
 bound (bytes over 3.35 TB/s against the busiest pipe's instructions, as
 the kernels' SASS counts them, the larger), the chain under the card's
-measured instruction latencies, and the share of the bound.
+measured instruction latencies, and the share of the bound; D1-D3 are
+timed at the same shapes on B2's real output (split of merge is the
+identity) beside their byte bounds, their plain versions and the C++ calls
+in turns.
 Phase ``layouts`` drives the decode table-layout tools
 (``entropy_coders_tpu_torch.tools``, kernels B4/B5): ``l10_attack.run`` at
 L=10 on the 128 MiB data and ``upack_hilog.run`` at L=11 and 13 (64 MiB,
@@ -38,9 +51,12 @@ points on the card, each leg checking that B1 and B2 launched:
 * ``pipeline``: the throughput point with the chunk pipeline and with one
   chunk at a time, in turns, wall times side by side.
 
-Phase ``trace`` runs one throughput-point compress plus decompress under
-``utils.trace`` (``torch.profiler``) and prints the device time it saw
-beside the wall time and the five device ops that took the most. Then it
+Phase ``trace`` runs one compress plus decompress at the throughput and at
+the default point under ``utils.trace`` (``torch.profiler``) and prints the
+device time it saw beside the wall time, the five device ops that took the
+most, and the host's wall time in each stage of ``frame.compress`` /
+``decompress`` (their ``ect.*`` profiler ranges), on the container's route
+and with the C++ repack. Then it
 drives the multi-device path (``entropy_coders_tpu_torch.parallel``):
 
 * ``ring``: the ring kernel (B3) against its plain version on virtual
@@ -290,6 +306,20 @@ def phase_kernels():
     return worst
 
 
+def phase_device_host():
+    """D1-D3 against their plain versions on the card and against the
+    port's C++ host library, exactly (``tools.device_host``). Returns the
+    largest difference measured, of the repack and of the tables."""
+    from entropy_coders_tpu_torch.tools import device_host as DH
+
+    t0 = time.perf_counter()
+    repack = DH.check_repack()
+    tables = DH.check_tables()
+    emit("device_host", repack=repack, tables=tables,
+         seconds=time.perf_counter() - t0)
+    return {"repack": repack["max_abs_err"], "tables": tables["max_abs_err"]}
+
+
 def phase_goldens(T, gg):
     import numpy as np
 
@@ -316,16 +346,22 @@ def phase_goldens(T, gg):
     emit("goldens", reproduced=names)
 
 
-def roundtrip(T, data, **kw):
-    """compress + decompress twice each (cold, then warm); the round trip
-    is asserted. Returns (frame, timings); the timings carry the B1 and B2
-    launches of one compress + decompress."""
-    import torch
-
+def _launch_counts_all():
+    """The launch counts of B1, B2 and D1-D3 as they stand."""
     from entropy_coders_tpu_torch.ops import pl_coder as PL
 
+    return {"decode": PL.DECODE_LAUNCHES, "encode": PL.ENCODE_LAUNCHES,
+            **_device_host_counts()}
+
+
+def roundtrip(T, data, **kw):
+    """compress + decompress twice each (cold, then warm); the round trip
+    is asserted. Returns (frame, timings); the timings carry every
+    kernel's launches of one compress + decompress."""
+    import torch
+
     times = {}
-    e0, d0 = PL.ENCODE_LAUNCHES, PL.DECODE_LAUNCHES
+    c0 = _launch_counts_all()
     for tag in ("cold", "warm"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -336,8 +372,8 @@ def roundtrip(T, data, **kw):
         torch.cuda.synchronize()
         times[f"decompress_s_{tag}"] = time.perf_counter() - t0
         check(out == data.tobytes(), f"round trip failed ({kw})")
-    times["launches"] = {"encode": (PL.ENCODE_LAUNCHES - e0) // 2,
-                         "decode": (PL.DECODE_LAUNCHES - d0) // 2}
+    times["launches"] = {k: (v - c0[k]) // 2
+                         for k, v in _launch_counts_all().items()}
     return frame, times
 
 
@@ -351,13 +387,13 @@ def phase_point(T, name, data, expect_bytes, **kw):
          compress_GBps=len(data) / times["compress_s_warm"] / 1e9,
          decompress_GBps=len(data) / times["decompress_s_warm"] / 1e9,
          **times)
-    return ratio
+    return ratio, frame
 
 
-def phase_default(T, gen_sequence):
-    """128 MiB at the library defaults (128 KiB blocks, k=1024, the
-    ("fast", 0.0025) policy), with a constant block (RLE), a uniform
-    block (RAW) and a 777-byte ragged tail (shared-stream MODE_FSE)."""
+def default_data(gen_sequence):
+    """The default point's input: 128 MiB + 777 bytes with a constant block
+    (RLE), a uniform block (RAW) and a ragged tail (shared-stream
+    MODE_FSE)."""
     import numpy as np
 
     from entropy_coders_tpu_torch import frame as TF
@@ -367,6 +403,15 @@ def phase_default(T, gen_sequence):
     data[3 * bs: 4 * bs] = 7
     data[5 * bs: 6 * bs] = np.random.default_rng(5).integers(
         0, 256, bs, dtype=np.uint8)
+    return data
+
+
+def phase_default(T, data):
+    """128 MiB at the library defaults (128 KiB blocks, k=1024, the
+    ("fast", 0.0025) policy) on ``default_data``. Returns the frame."""
+    from entropy_coders_tpu_torch import frame as TF
+
+    bs = TF.DEFAULT_BLOCK_SIZE
     frame, times = roundtrip(T, data)
     pf = TF._parse_frame(frame)
     modes = {name: int((pf.modes == m).sum()) for name, m in
@@ -377,6 +422,109 @@ def phase_default(T, gen_sequence):
     emit("default", frame_bytes=len(frame), ratio=len(frame) / len(data),
          input_bytes=len(data), modes=modes, block_size=bs, k=TF.DEFAULT_K,
          **times)
+    return frame
+
+
+# --- the repack and table routes, in turns ---------------------------------------
+
+# route -> (frame._DEVICE_REPACK, PL.HOST_TABLES_ON_CUDA); None leaves the
+# switch as the package sets it, so "device" is the route a user gets
+ROUTES = {"device": (None, None), "cpp_repack": (False, None),
+          "host_tables": (None, True)}
+
+
+def _device_host_counts():
+    from entropy_coders_tpu_torch.ops import device_repack as DR
+    from entropy_coders_tpu_torch.ops import tables as TB
+
+    return {"merge": DR.MERGE_LAUNCHES, "split": DR.SPLIT_LAUNCHES,
+            "tables": TB.TABLE_LAUNCHES}
+
+
+def phase_routes(T, PL, points, rounds: int = 3):
+    """Each point of ``points`` (name -> (data, knobs, the expected frame))
+    through three routes in turns (``device``: no switch forced, the
+    container's own route, which must put repack and tables on the card; ``cpp_repack``:
+    the C++ repack forced; ``host_tables``: tables built on the host and
+    copied, forced): device, cpp_repack, host_tables, then the reverse,
+    ``rounds`` times. Host-clock wall times, each run ending synchronised, and the
+    host's time in each stage of ``frame.compress``/``decompress`` (their
+    ``ect.*`` ranges, clocked here; ``ect.tables`` lies inside the dispatch
+    stages); every frame equal to the expected one and every round trip
+    exact; a route's launch counts must show its kernels and none of the
+    others'."""
+    import contextlib
+
+    import torch
+
+    from entropy_coders_tpu_torch import frame as TF
+
+    spent = {}
+
+    @contextlib.contextmanager
+    def clock(stage):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            spent[stage] = spent.get(stage, 0.0) + time.perf_counter() - t0
+
+    order = [*ROUTES, *reversed(ROUTES)] * rounds
+    saved = (TF._DEVICE_REPACK, PL.HOST_TABLES_ON_CUDA, TF._stage,
+             PL.record_function)
+    check(saved[0] is None, "routes: a repack switch is already forced")
+    out = {}
+    try:
+        # the stage ranges of frame.py and of tables_from_norm feed a
+        # host clock here, where no profiler listens
+        TF._stage = PL.record_function = clock
+        for name, (data, knobs, want) in points.items():
+            times = {r: {"compress_s": [], "decompress_s": [], "stages": []}
+                     for r in ROUTES}
+            launches = {}
+            for route in order:
+                repack, host_tables = ROUTES[route]
+                TF._DEVICE_REPACK = saved[0] if repack is None else repack
+                PL.HOST_TABLES_ON_CUDA = (saved[1] if host_tables is None
+                                          else host_tables)
+                spent.clear()
+                c0 = _device_host_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                frame = T.compress(data, device="cuda", **knobs)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                back = T.decompress(frame, device="cuda")
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                got = {k: v - c0[k] for k, v in _device_host_counts().items()}
+                check(frame == want, f"routes: {name} frame differs on "
+                      f"route {route}")
+                check(back == data.tobytes(), f"routes: {name} round trip "
+                      f"on route {route}")
+                check((got["merge"] > 0) == (repack is None)
+                      and (got["split"] > 0) == (repack is None)
+                      and (got["tables"] > 0) == (host_tables is None),
+                      f"routes: {name} on route {route} launched {got}")
+                launches[route] = got
+                times[route]["compress_s"].append(t1 - t0)
+                times[route]["decompress_s"].append(t2 - t1)
+                times[route]["stages"].append(dict(spent))
+            for r in times:
+                for k in ("compress_s", "decompress_s"):
+                    times[r][k.replace("_s", "_median_s")] = \
+                        statistics.median(times[r][k])
+                runs = times[r].pop("stages")
+                times[r]["stage_median_ms"] = {
+                    st: statistics.median(x.get(st, 0.0) for x in runs) * 1e3
+                    for st in sorted(set().union(*runs))}
+            out[name] = {"frame_bytes": len(want), "order": order,
+                         "launches": launches, **times}
+    finally:
+        (TF._DEVICE_REPACK, PL.HOST_TABLES_ON_CUDA, TF._stage,
+         PL.record_function) = saved
+    emit("routes", **out)
+    return out
 
 
 # --- the user entry points (stream, CLI, checkpoints) and the pipeline ------------
@@ -671,10 +819,14 @@ def entry_checkpoint(T, PL, tmp):
 
 
 def one_chunk_at_a_time(PL):
-    """Patch ``PL.encode_lanes_norm``/``decode_lanes_norm`` so that a lazy
-    call drains its chunk before it returns (the loop before the
-    pipeline: dispatch, drain, next chunk). Returns the undo."""
+    """Patch ``PL.encode_lanes_norm``/``decode_lanes_norm`` and
+    ``device_repack.encode_lanes_merged`` so that a lazy call drains its
+    chunk before it returns (the loop before the pipeline: dispatch, drain,
+    next chunk). Returns the undo."""
+    from entropy_coders_tpu_torch.ops import device_repack as DR
+
     real = PL.encode_lanes_norm, PL.decode_lanes_norm
+    real_merged = DR.encode_lanes_merged
 
     def eager(fn):
         def call(*args, lazy=False, **kw):
@@ -687,8 +839,15 @@ def one_chunk_at_a_time(PL):
 
     PL.encode_lanes_norm, PL.decode_lanes_norm = map(eager, real)
 
+    def merged(*args, **kw):
+        res = real_merged(*args, **kw)()
+        return lambda: res
+
+    DR.encode_lanes_merged = merged
+
     def undo():
         PL.encode_lanes_norm, PL.decode_lanes_norm = real
+        DR.encode_lanes_merged = real_merged
     return undo
 
 
@@ -758,44 +917,72 @@ def phase_entry_points(T, PL, gg, data):
     return launches
 
 
-def phase_trace(T, data):
-    """One throughput-point compress plus decompress under the port's
-    ``utils.trace``: the device time ``torch.profiler`` saw (kernels and
-    copies) against the wall time, and the five device ops that took the
-    most. The trace goes to ``build/trace/``."""
+def phase_trace(T, points):
+    """One compress plus decompress of each point of ``points`` (name ->
+    (data, knobs, frame._DEVICE_REPACK for the run: None is the
+    container's own route)) under the port's ``utils.trace``: the device time
+    ``torch.profiler`` saw (kernels and copies) against the wall time, the
+    five device ops that took the most, and the host's wall time in each
+    stage of ``frame.compress``/``decompress`` (the ``ect.*`` ranges;
+    ``ect.tables`` lies inside the dispatch stages). The traces go to
+    ``build/trace/``."""
     import torch
 
     from entropy_coders_tpu_torch import utils
 
     from torch.autograd import DeviceType
 
-    T.compress(data, device="cuda", **THROUGHPUT)  # warm
-    t0 = time.perf_counter()
-    with utils.trace(ROOT / "build" / "trace") as prof:
-        start_s = time.perf_counter() - t0  # the profiler's own start-up
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        frame = T.decompress(T.compress(data, device="cuda", **THROUGHPUT),
-                             device="cuda")
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t1
-    check(frame == data.tobytes(), "trace: round trip")
-    # device-side events only: a CPU op's self device time repeats its
-    # kernels' and copies'
-    ops = [(e.key, e.self_device_time_total, e.count)
-           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    copy = ("Memcpy", "Memset")
-    kernel_us = sum(t for name, t, _ in ops if not name.startswith(copy))
-    copy_us = sum(t for name, t, _ in ops if name.startswith(copy))
-    top = sorted(ops, key=lambda o: -o[1])[:5]
-    # busy share: device op time over the wall time of the work (copies
-    # on the side streams may overlap kernels and count twice)
-    emit("trace", wall_ms=wall_s * 1e3, profiler_start_s=start_s,
-         device_kernel_ms=kernel_us / 1e3, device_copy_ms=copy_us / 1e3,
-         device_busy_share=(kernel_us + copy_us) / 1e3 / (wall_s * 1e3),
-         device_time_visible=bool(ops),
-         top5=[{"op": name[:120], "ms": t / 1e3, "calls": n}
-               for name, t, n in top])
+    from entropy_coders_tpu_torch import frame as TF
+
+    out = {}
+    for name, (data, knobs, repack) in points.items():
+        saved, TF._DEVICE_REPACK = TF._DEVICE_REPACK, repack
+        try:
+            T.compress(data, device="cuda", **knobs)  # warm
+            t0 = time.perf_counter()
+            with utils.trace(ROOT / "build" / "trace") as prof:
+                start_s = time.perf_counter() - t0  # the profiler's start-up
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                frame = T.compress(data, device="cuda", **knobs)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                back = T.decompress(frame, device="cuda")
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+        finally:
+            TF._DEVICE_REPACK = saved
+        check(back == data.tobytes(), f"trace ({name}): round trip")
+        events = prof.key_averages()
+        # device-side events only (a CPU op's self device time repeats its
+        # kernels' and copies'), without the stage ranges' mirrors on the
+        # device timeline
+        ops = [(e.key, e.self_device_time_total, e.count)
+               for e in events if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ect.")]
+        copy = ("Memcpy", "Memset")
+        kernel_us = sum(t for key, t, _ in ops if not key.startswith(copy))
+        copy_us = sum(t for key, t, _ in ops if key.startswith(copy))
+        top = sorted(ops, key=lambda o: -o[1])[:5]
+        stages = {e.key: {"host_ms": e.cpu_time_total / 1e3, "calls": e.count}
+                  for e in events if e.key.startswith("ect.")
+                  and e.device_type == DeviceType.CPU}
+        check(any(k.startswith("ect.compress.") for k in stages)
+              and any(k.startswith("ect.decompress.") for k in stages),
+              f"trace ({name}): no stage range in the profile: {stages}")
+        wall_s = t3 - t1
+        # busy share: device op time over the wall time of the work (copies
+        # on the side streams may overlap kernels and count twice)
+        out[name] = dict(
+            wall_ms=wall_s * 1e3, compress_ms=(t2 - t1) * 1e3,
+            decompress_ms=(t3 - t2) * 1e3, profiler_start_s=start_s,
+            device_kernel_ms=kernel_us / 1e3, device_copy_ms=copy_us / 1e3,
+            device_busy_share=(kernel_us + copy_us) / 1e3 / (wall_s * 1e3),
+            device_time_visible=bool(ops),
+            top5=[{"op": key[:120], "ms": t / 1e3, "calls": n}
+                  for key, t, n in top],
+            host_stages=dict(sorted(stages.items())))
+    emit("trace", **out)
 
 
 _SASS_LAT = {}
@@ -824,10 +1011,14 @@ def phase_timing(data):
     default policy's table log). At a launch shape the kernels and the
     plain versions run on the same tensors and their outputs must agree;
     each time is printed beside its bound and the share of the bound, and
-    at the throughput shape the plain versions are timed too."""
+    at the throughput shape the plain versions are timed too. D1-D3 run on
+    the same tensors (``tools.device_host``): split of merge is the
+    identity on B2's output, and their times stand beside their bounds,
+    their plain versions and the C++ calls in turns."""
     import torch
 
     from entropy_coders_tpu_torch.ops import pl_coder as PL
+    from entropy_coders_tpu_torch.tools import device_host as DH
     from entropy_coders_tpu_torch.tools import lane_shapes as LS
     from entropy_coders_tpu_torch.tools.bench_data import cuda_ms
 
@@ -873,6 +1064,10 @@ def phase_timing(data):
                 row[kind]["plain_ms"] = cuda_ms(plain[kind], runs=2,
                                                 warmup=0)[0]
         row["clocks"] = {"before": clocks, "after": LS.card_clocks()}
+        # D1-D3 on this shape's tensors: the wire form the point uses
+        row["device_host"] = {
+            "repack": DH.shape_repack(inp, pack_bits=name == "parity"),
+            "tables": DH.shape_tables(inp)}
         shapes[name] = row
         emit(f"timing_shape_{name}", **row)
         del inp, got, want
@@ -1247,8 +1442,8 @@ def phase_multihost(expected):
         for leg, sha in expected.items():
             check(r["legs"][leg]["sha256"] == sha,
                   f"worker {r['rank']} {leg} frame != the single-process one")
-        check(r["launches"]["decode"] > 0 and r["launches"]["encode"] > 0,
-              f"worker {r['rank']} launched no kernel: {r['launches']}")
+        check(min(r["launches"].values()) > 0,
+              f"worker {r['rank']} never launched a kernel: {r['launches']}")
     emit("multihost", processes=num, workers=results)
 
 
@@ -1285,7 +1480,8 @@ def multihost_worker(port: int, num: int, rank: int) -> int:
                       "device": str(MH._local_device(None, None)),
                       "owned_blocks": [lo, hi], "legs": legs,
                       "launches": {"decode": PL.DECODE_LAUNCHES,
-                                   "encode": PL.ENCODE_LAUNCHES}}),
+                                   "encode": PL.ENCODE_LAUNCHES,
+                                   **_device_host_counts()}}),
           flush=True)
     dist.destroy_process_group()
     return 0
@@ -1293,35 +1489,53 @@ def multihost_worker(port: int, num: int, rank: int) -> int:
 
 def run_single(T, PL, gg, data):
     """The single-device phases; returns the main path's launch counts,
-    the kernels' largest difference from their plain versions and the
-    timings at the main path's launch shapes."""
+    B1's and B2's largest difference from their plain versions, the
+    timings at the main path's launch shapes and D1-D3's largest
+    differences in phase ``device_host``."""
+    from entropy_coders_tpu_torch.ops import device_repack as DR
+    from entropy_coders_tpu_torch.ops import tables as TB
+
     worst = phase_kernels()
+    dh_err = phase_device_host()
 
     # the main path: every count starts at 0 here, and only the
     # compress/decompress calls below add to it
     PL.DECODE_LAUNCHES = 0
     PL.ENCODE_LAUNCHES = 0
+    DR.MERGE_LAUNCHES = 0
+    DR.SPLIT_LAUNCHES = 0
+    TB.TABLE_LAUNCHES = 0
     phase_goldens(T, gg)
-    phase_point(T, "throughput", data, THROUGHPUT_BYTES,
-                block_size=16 * MIB, k=16384, table_log=8, lanes=True)
-    ratio = phase_point(T, "parity", data, PARITY_BYTES,
-                        block_size=16 * MIB, k=8192, table_log=11,
-                        lanes=True, bit_pack=True)
+    tp_knobs = dict(block_size=16 * MIB, k=16384, table_log=8, lanes=True)
+    par_knobs = dict(block_size=16 * MIB, k=8192, table_log=11, lanes=True,
+                     bit_pack=True)
+    _, tp_frame = phase_point(T, "throughput", data, THROUGHPUT_BYTES,
+                              **tp_knobs)
+    ratio, par_frame = phase_point(T, "parity", data, PARITY_BYTES,
+                                   **par_knobs)
     check(ratio <= REFERENCE_RATIO, f"parity ratio {ratio} > "
           f"{REFERENCE_RATIO}")
-    phase_default(T, gg.gen_sequence)
-    launches = {"decode": PL.DECODE_LAUNCHES,
-                "encode": PL.ENCODE_LAUNCHES}
-    check(launches["decode"] > 0 and launches["encode"] > 0,
+    ddata = default_data(gg.gen_sequence)
+    dframe = phase_default(T, ddata)
+    # read before any phase forces a route: these are the main path's own
+    launches = _launch_counts_all()
+    check(min(launches.values()) > 0,
           f"a kernel of the main path never launched: {launches}")
     emit("launches", **launches)
+    phase_routes(T, PL, {"throughput": (data, tp_knobs, tp_frame),
+                         "parity": (data, par_knobs, par_frame),
+                         "default": (ddata, {}, dframe)})
     phase_entry_points(T, PL, gg, data)
-    phase_trace(T, data)
+    phase_trace(T, {"throughput": (data, THROUGHPUT, None),
+                    "default": (ddata, {}, None),
+                    "throughput_cpp_repack": (data, THROUGHPUT, False),
+                    "default_cpp_repack": (ddata, {}, False)})
+    del ddata
 
     timing = phase_timing(data)
     worst = max([worst] + [timing[p][s]["max_abs_err"]
                            for p in timing for s in timing[p]])
-    return launches, worst, timing["shapes"]
+    return launches, worst, timing["shapes"], dh_err
 
 
 def run_parallel(T, PL, R, data):
@@ -1339,9 +1553,11 @@ def run_parallel(T, PL, R, data):
     PL.DECODE_LAUNCHES = 0
     PL.ENCODE_LAUNCHES = 0
     R.RING_LAUNCHES = 0
+    before = _device_host_counts()
     phase_sharded(T, data, single)
     par = {"decode": PL.DECODE_LAUNCHES, "encode": PL.ENCODE_LAUNCHES,
-           "ring": R.RING_LAUNCHES}
+           "ring": R.RING_LAUNCHES,
+           **{k: v - before[k] for k, v in _device_host_counts().items()}}
     check(min(par.values()) > 0,
           f"a kernel of the multi-device path never launched: {par}")
     emit("launches_parallel", **par)
@@ -1370,7 +1586,31 @@ def _lane_row(name, kind, src, replaces, launches, worst, shapes):
                        for s, r in shapes.items()}}
 
 
-def print_kernels(launches, worst, shapes, ring_err, ring_full, par, layouts):
+def _device_host_row(name, src, replaces, launches, shapes, pick, checked):
+    """D1, D2 or D3 in the kernels line: its wrapper's time at the
+    throughput launch shape beside the bare kernel's, the plain version's,
+    the bound and the C++ call's host time; every launch shape beside it.
+    ``pick`` takes a shape's ``device_host`` entry to the kernel's.
+    ``max_abs_err`` is the largest difference measured between the kernel
+    and its plain version or the C++ library, over phase ``device_host``'s
+    cases (``checked``) and every launch shape."""
+    tp = pick(shapes["throughput"]["device_host"])
+    err = max([checked] + [pick(r["device_host"])["max_abs_err"]
+                           for r in shapes.values()])
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": tp["ms"], "plain_ms": tp["plain_ms"],
+            "bound_ms": tp["bound_ms"], "bound_by": tp["bound_by"],
+            "library_ms": None, "cpp_host_ms": tp["cpp_ms"],
+            "shapes": {s: {k: v for k, v in pick(r["device_host"]).items()
+                           if k in ("ms", "kernel_ms", "plain_ms", "cpp_ms",
+                                    "bound_ms", "bytes")}
+                       | {"B": r["B"], "k": r["k"], "L": r["L"]}
+                       for s, r in shapes.items()}}
+
+
+def print_kernels(launches, worst, shapes, dh_err, ring_err, ring_full, par,
+                  layouts):
     """The line before the last: every kernel with its main-path launches,
     its largest difference from its plain version, its times and its
     bound. B1 and B2 are timed at the throughput launch shape (B=4 blocks
@@ -1381,8 +1621,11 @@ def print_kernels(launches, worst, shapes, ring_err, ring_full, par, layouts):
     ``tools/l10_attack.py`` defines (fused, nosym) and times fused, B5's
     the layouts the harness serves (flat, split, upack) and times split,
     each against its plain version on one 16 MiB block at L=10;
-    ``layouts`` gives every layout's ms on all eight blocks at L=10. No
-    PyTorch call computes B1, B2, B4 or B5."""
+    ``layouts`` gives every layout's ms on all eight blocks at L=10. D1,
+    D2 and D3 (``tools.device_host``) are timed through their wrappers
+    (offsets and the zeroed buffer included) at the throughput launch
+    shape, the C++ call of the port's host library beside them. No PyTorch
+    call computes B1, B2, B4, B5 or D1-D3."""
     lay_launches, lay_err, lay10, one10 = layouts
     lay_ms = {n: r["ms"] for n, r in lay10.items()}
     src = "entropy_coders_tpu_torch/csrc"
@@ -1412,6 +1655,18 @@ def print_kernels(launches, worst, shapes, ring_err, ring_full, par, layouts):
          "launches": sum(lay_launches[n] for n in ("flat", "split", "upack")),
          "max_abs_err": lay_err, **one10["split"], "library_ms": None,
          "layouts": lay_ms},
+        _device_host_row("lane_merge (D1)", f"{src}/repack.cu",
+                         "entropy_coders_tpu/ops/device_repack.py:56",
+                         launches["merge"], shapes,
+                         lambda d: d["repack"]["merge"], dh_err["repack"]),
+        _device_host_row("lane_split (D2)", f"{src}/repack.cu",
+                         "entropy_coders_tpu/ops/device_repack.py:79",
+                         launches["split"], shapes,
+                         lambda d: d["repack"]["split"], dh_err["repack"]),
+        _device_host_row("build_tables (D3)", f"{src}/tables.cu",
+                         "entropy_coders_tpu/ops/tables.py:44",
+                         launches["tables"], shapes, lambda d: d["tables"],
+                         dh_err["tables"]),
     ]}), flush=True)
 
 
@@ -1438,11 +1693,11 @@ def main() -> int:
         phase_env()
         gg = load_testdata()
         data = gg.gen_sequence(0.2, BENCH_SIZE, BENCH_SEED)
-        launches, worst, shapes = run_single(T, PL, gg, data)
+        launches, worst, shapes, dh_err = run_single(T, PL, gg, data)
         layouts = phase_layouts(data)
         ring_err, ring_full, par = run_parallel(T, PL, R, data)
-        print_kernels(launches, worst, shapes, ring_err, ring_full, par,
-                      layouts)
+        print_kernels(launches, worst, shapes, dh_err, ring_err, ring_full,
+                      par, layouts)
     except Exception:  # report any failing phase, print no result
         traceback.print_exc()
         return 1

@@ -12,11 +12,14 @@ the reference it is held against.
 * ``__main__``  — the CLI, ``python -m entropy_coders_tpu_torch``;
 * ``utils``     — ``frame_stats``, ``timed``, ``trace`` (torch.profiler),
   the bounds-checked cores (``utils.checked``);
-* ``ops``       — per-lane kernels' wrappers and plain versions, the
-  shared-stream cores and payload codec, the per-block histogram;
+* ``ops``       — per-lane kernels' wrappers and plain versions, the lane
+  repack and the table build on the device (``ops.device_repack``,
+  ``ops.tables``), the shared-stream cores and payload codec, the
+  per-block histogram;
 * ``parallel``  — block sharding over several devices, multi-process
   frames, the ring collective;
-* ``kernels``   — nvcc build + ctypes load of ``csrc/*.cu``;
+* ``kernels``   — nvcc build + ctypes load of ``csrc/*.cu``; ``builddir``
+  says where it and ``native`` build;
 * ``native``    — the C++ host codec (tables, header I/O, lane repack),
   built with g++ at first use; ``normalize`` and ``constants`` beside it;
 * ``tools``     — the decode table-layout measurement scripts and their

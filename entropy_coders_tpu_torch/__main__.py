@@ -45,10 +45,13 @@ def _launches(device) -> str:
     """The kernel launches of this process, where the work ran on CUDA."""
     if device.type != "cuda":
         return ""
+    from .ops import device_repack as DR
     from .ops import pl_coder as PL
+    from .ops import tables as TB
 
     return (f"; kernel launches: encode {PL.ENCODE_LAUNCHES}, "
-            f"decode {PL.DECODE_LAUNCHES}")
+            f"decode {PL.DECODE_LAUNCHES}, merge {DR.MERGE_LAUNCHES}, "
+            f"split {DR.SPLIT_LAUNCHES}, tables {TB.TABLE_LAUNCHES}")
 
 
 def main(argv=None) -> int:

@@ -7,10 +7,15 @@ shared-stream k-way interleave, MODE_FSE; or the RAW/RLE escapes).
 
 Pipeline per frame:
   host split -> one h2d of the full blocks -> device histogram -> host
-  normalize (``normalize``) + header write -> C++ table build (``native``)
-  -> per-lane encode kernel (B2) -> d2h -> C++ lane merge -> frame
-  assembly. Decode mirrors it through the C++ lane split and the per-lane
-  decode kernel (B1).
+  normalize (``normalize``) + header write -> table build (``ops.tables``
+  on the card, or ``native`` on the host: ``host_tables``) -> per-lane
+  encode kernel (B2) -> lane merge (``ops.device_repack`` on a CUDA device:
+  only the payload bytes come back; the C++ merge for the CPU) -> frame
+  assembly. Decode mirrors it: the span of the frame that holds the
+  per-lane payloads goes to the card once, the lane split (D2) and the
+  per-lane decode kernel (B1) run there. The stages are named
+  ``torch.profiler`` ranges (``ect.compress.*``, ``ect.decompress.*``), so a
+  trace splits the host's time by stage.
 
 ``device`` selects where the block work runs. It defaults to ``"cuda"`` and
 raises when CUDA is unavailable; ``device="cpu"`` runs the kernels' plain
@@ -39,10 +44,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function as _stage
 
 from . import native
 from .constants import TABLE_LOG_DEFAULT, TABLE_LOG_MAX, TABLE_LOG_MIN
 from .normalize import normalize_batch
+from .ops import device_repack as DR
 from .ops import pl_coder as PL
 from .ops.coder import blocks_to_syms, decode_core, encode_core, encode_layout
 from .ops.histogram import histogram_blocks
@@ -68,6 +75,17 @@ DEFAULT_K = 1024
 PL_TABLE_LOG = ("fast", 0.0025)
 
 _CHUNK_RAW = 64 << 20  # raw bytes per kernel call on the per-lane path
+
+# Where the lane repack of the per-lane path runs. None: on the card for a
+# CUDA device (``ops.device_repack``, kernels D1/D2) and in the C++ host
+# library for the CPU. True/False force the device route (through the plain
+# versions on the CPU) or the C++ route: a private switch for tests and
+# in-turn measurements, not a user knob. Both write the same bytes.
+_DEVICE_REPACK: bool | None = None
+
+
+def _device_repack(dev: torch.device) -> bool:
+    return dev.type == "cuda" if _DEVICE_REPACK is None else _DEVICE_REPACK
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -193,8 +211,10 @@ def compress(
         lanes = mesh[0].type == "cuda"
     if table_log is None:
         table_log = PL_TABLE_LOG if lanes else TABLE_LOG_DEFAULT
-    data = (np.frombuffer(bytearray(data), np.uint8)
-            if not isinstance(data, np.ndarray) else np.asarray(data, np.uint8))
+    with _stage("ect.compress.input"):
+        data = (np.frombuffer(bytearray(data), np.uint8)
+                if not isinstance(data, np.ndarray)
+                else np.asarray(data, np.uint8))
     if block_size < 16:
         raise ValueError("block_size must be >= 16")
     if k < 1 or k > min(block_size, 0xFFFF):
@@ -230,10 +250,12 @@ def compress(
         blocks = data[: full * block_size].reshape(full, block_size)
         # one h2d per share of the mesh (one share without a sharding): the
         # device copies feed both the histogram and the lane encode kernel
-        placed = [(lo, torch.from_numpy(blocks[lo:hi]).to(d))
-                  for d, lo, hi in _shares(full, mesh)]
-        counts = np.concatenate([histogram_blocks(t).cpu().numpy()
-                                 for _, t in placed])
+        with _stage("ect.compress.h2d"):
+            placed = [(lo, torch.from_numpy(blocks[lo:hi]).to(d))
+                      for d, lo, hi in _shares(full, mesh)]
+        with _stage("ect.compress.histogram"):
+            counts = np.concatenate([histogram_blocks(t).cpu().numpy()
+                                     for _, t in placed])
         # single-symbol blocks can't be FSE-coded (the reference's
         # normalization rejects table_len == 1); they take the RLE escape
         nsym = (counts != 0).sum(axis=1)
@@ -244,8 +266,9 @@ def compress(
                                         axis=0)
                 log2_arr = np.full(codable.size, s_shared[1], np.int64)
             else:
-                norm_tables, log2_arr = normalize_batch(
-                    counts[codable], block_size, table_log)
+                with _stage("ect.compress.normalize"):
+                    norm_tables, log2_arr = normalize_batch(
+                        counts[codable], block_size, table_log)
             _encode_group(blocks, norm_tables, log2_arr, k, shared_table,
                           sections, modes, codable, mesh, lanes=lanes,
                           placed=placed, bit_pack=bit_pack)
@@ -256,38 +279,39 @@ def compress(
                      modes, n_blocks - 1, mesh[0], lanes=lanes,
                      bit_pack=bit_pack)
 
-    # RAW/RLE escapes where FSE did not win. Constant-block detection for
-    # full blocks comes free from the device histogram (nsym == 1).
-    raw_lens = [min(block_size, total_len - i * block_size)
-                for i in range(n_blocks)]
-    for i in range(n_blocks):
-        rl = raw_lens[i]
-        o = i * block_size
-        if modes[i] in (MODE_FSE, MODE_FSE_PL) and len(sections[i]) >= rl:
-            modes[i] = MODE_RAW
-            sections[i] = data[o: o + rl].tobytes()
-        if nsym is not None and i < len(nsym):
-            is_const = bool(nsym[i] == 1)
-        else:
-            is_const = rl > 1 and bool((data[o: o + rl] == data[o]).all())
-        if modes[i] != MODE_RLE and rl > 1 and is_const:
-            modes[i] = MODE_RLE
-            sections[i] = bytes([int(data[o])])
+    with _stage("ect.compress.frame"):
+        # RAW/RLE escapes where FSE did not win. Constant-block detection for
+        # full blocks comes free from the device histogram (nsym == 1).
+        raw_lens = [min(block_size, total_len - i * block_size)
+                    for i in range(n_blocks)]
+        for i in range(n_blocks):
+            rl = raw_lens[i]
+            o = i * block_size
+            if modes[i] in (MODE_FSE, MODE_FSE_PL) and len(sections[i]) >= rl:
+                modes[i] = MODE_RAW
+                sections[i] = data[o: o + rl].tobytes()
+            if nsym is not None and i < len(nsym):
+                is_const = bool(nsym[i] == 1)
+            else:
+                is_const = rl > 1 and bool((data[o: o + rl] == data[o]).all())
+            if modes[i] != MODE_RLE and rl > 1 and is_const:
+                modes[i] = MODE_RLE
+                sections[i] = bytes([int(data[o])])
 
-    parts = [_frame_header(total_len, k, block_size, n_blocks,
-                           shared_table, checksum, bit_pack)]
-    if shared_table:
-        parts.append(struct.pack("<H", len(shared_hdr)) + shared_hdr)
-    entries = (modes.astype(np.uint32) << 30) | np.array(
-        [len(s) for s in sections], np.uint32)
-    parts.append(entries.astype("<u4").tobytes())
-    if checksum:
-        crcs = np.array(
-            [zlib.crc32(data[i * block_size: i * block_size + raw_lens[i]])
-             & 0xFFFFFFFF for i in range(n_blocks)], np.uint32)
-        parts.append(crcs.astype("<u4").tobytes())
-    parts.extend(sections)
-    return b"".join(parts)
+        parts = [_frame_header(total_len, k, block_size, n_blocks,
+                               shared_table, checksum, bit_pack)]
+        if shared_table:
+            parts.append(struct.pack("<H", len(shared_hdr)) + shared_hdr)
+        entries = (modes.astype(np.uint32) << 30) | np.array(
+            [len(s) for s in sections], np.uint32)
+        parts.append(entries.astype("<u4").tobytes())
+        if checksum:
+            crcs = np.array(
+                [zlib.crc32(data[i * block_size: i * block_size + raw_lens[i]])
+                 & 0xFFFFFFFF for i in range(n_blocks)], np.uint32)
+            parts.append(crcs.astype("<u4").tobytes())
+        parts.extend(sections)
+        return b"".join(parts)
 
 
 def _tl(table) -> int:
@@ -357,35 +381,54 @@ def _encode_group_pl(blocks_dev, norm_tables, l2, k, shared_table, sections,
     """Per-lane-stream (MODE_FSE_PL) encode of equal-size blocks sharing one
     table log, from the device-resident (B, n) uint8 ``blocks_dev``: B2 on
     CUDA, its plain version on CPU, ~64 MiB of raw bytes per call; then the
-    C++ lane merge and section assembly on the host."""
+    lane merge (D1 on the card behind B2, or the C++ merge on the host:
+    ``_DEVICE_REPACK``) and section assembly on the host."""
     B, n = blocks_dev.shape
     R = n // k - 1
     W = PL.encode_w_bound(R, int(l2))
 
-    def drain(j0, words, szs):
-        # host side of the pipeline: the C++ merge and section assembly of
-        # one chunk, overlapping the device encode of the chunks after it
-        payloads = PL.lane_merge_batch(words, szs, pack_bits=bit_pack)
-        for jj in range(words.shape[0]):
-            j = j0 + jj
-            st = szs[jj].astype("<u2").tobytes()
-            # FLAG_PACKED also FSE-compresses the lane-size table (2
-            # bytes/lane, up to 12% of small-k blocks)
-            sec = (_pack_size_table(st) if bit_pack else st) + payloads[jj]
-            if not shared_table:
-                sec = _write_header(norm_tables[j], int(l2)) + sec
-            sections[block_ids[j]] = sec
-            modes[block_ids[j]] = MODE_FSE_PL
+    on_device = _device_repack(blocks_dev.device)
 
-    # every chunk's kernel is dispatched before the first is drained
-    # (entropy_coders_tpu/frame.py:477-488)
+    def launch(j0):
+        rows = slice(j0, j0 + chunk)
+        if on_device:
+            # the merge is queued behind B2 on the card; only the payload
+            # bytes and the sizes come back
+            return DR.encode_lanes_merged(
+                blocks_dev[rows], norm_tables[rows], k=k, L=int(l2), W=W,
+                pack_bits=bit_pack)
+        return PL.encode_lanes_norm(blocks_dev[rows], norm_tables[rows], k=k,
+                                    L=int(l2), W=W, lazy=True)
+
+    # every chunk's kernels are dispatched before the first is drained
+    # (entropy_coders_tpu/frame.py:477-488): the host's merge (on its
+    # route) and section assembly of one chunk overlap the device work of
+    # the chunks after it
     chunk = max(1, _cdiv(_CHUNK_RAW, n))
-    handles = [(j0, PL.encode_lanes_norm(blocks_dev[j0: j0 + chunk],
-                                         norm_tables[j0: j0 + chunk], k=k,
-                                         L=int(l2), W=W, lazy=True))
-               for j0 in range(0, B, chunk)]
+    with _stage("ect.compress.dispatch"):
+        handles = [(j0, launch(j0)) for j0 in range(0, B, chunk)]
     for j0, collect in handles:
-        drain(j0, *collect())
+        with _stage("ect.compress.collect"):
+            got = collect()
+        if on_device:
+            flat, offs, szs = got
+            payloads = [flat[offs[jj]: offs[jj + 1]]
+                        for jj in range(len(szs))]
+        else:
+            words, szs = got
+            with _stage("ect.compress.merge_cpp"):
+                payloads = PL.lane_merge_batch(words, szs, pack_bits=bit_pack)
+        with _stage("ect.compress.assemble"):
+            for jj, payload in enumerate(payloads):
+                j = j0 + jj
+                st = szs[jj].astype("<u2").tobytes()
+                # FLAG_PACKED also FSE-compresses the lane-size table (2
+                # bytes/lane, up to 12% of small-k blocks)
+                parts = [_pack_size_table(st) if bit_pack else st, payload]
+                if not shared_table:
+                    parts.insert(0, _write_header(norm_tables[j], int(l2)))
+                sections[block_ids[j]] = b"".join(parts)
+                modes[block_ids[j]] = MODE_FSE_PL
 
 
 def _rows_on(dev, ids, blocks, placed):
@@ -585,9 +628,10 @@ def decompress(frame: bytes, *, start: int = 0, length: int | None = None,
     unspecified. ``device`` is where the block work runs (default
     ``"cuda"``, which raises when CUDA is unavailable); ``sharding``
     spreads it over ``sharding.mesh`` as in ``compress``."""
-    return _decompress_parsed(_parse_frame(frame), start=start,
-                              length=length, out=out, device=device,
-                              sharding=sharding)
+    with _stage("ect.decompress.parse"):
+        pf = _parse_frame(frame)
+    return _decompress_parsed(pf, start=start, length=length, out=out,
+                              device=device, sharding=sharding)
 
 
 def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
@@ -629,56 +673,79 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
         if rest:
             raise ValueError("trailing bytes after shared histogram header")
 
-    # group FSE blocks by (raw_len, log2) for batched decode
-    groups: dict[tuple[int, int], list] = {}
-    pl_groups: dict[tuple[int, int], list] = {}
-    for i in wanted:
-        mode, sec = int(pf.modes[i]), pf.section(i)
-        rl = min(pf.block_size, pf.total_len - i * pf.block_size)
-        o = i * pf.block_size - base
-        if mode == MODE_RAW:
-            if len(sec) != rl:
-                raise ValueError(f"raw block {i} length mismatch")
-            out[o: o + rl] = np.frombuffer(sec, np.uint8)
-        elif mode == MODE_RLE:
-            if len(sec) != 1:
-                raise ValueError(f"rle block {i} length mismatch")
-            out[o: o + rl] = sec[0]
-        elif mode in (MODE_FSE, MODE_FSE_PL):
-            if pf.shared:
-                tbl, l2, payload = shared_tbl, shared_l2, sec
+    with _stage("ect.decompress.parse"):
+        # group FSE blocks by (raw_len, log2) for batched decode
+        groups: dict[tuple[int, int], list] = {}
+        pl_groups: dict[tuple[int, int], list] = {}
+        for i in wanted:
+            mode, sec = int(pf.modes[i]), pf.section(i)
+            rl = min(pf.block_size, pf.total_len - i * pf.block_size)
+            o = i * pf.block_size - base
+            if mode == MODE_RAW:
+                if len(sec) != rl:
+                    raise ValueError(f"raw block {i} length mismatch")
+                out[o: o + rl] = np.frombuffer(sec, np.uint8)
+            elif mode == MODE_RLE:
+                if len(sec) != 1:
+                    raise ValueError(f"rle block {i} length mismatch")
+                out[o: o + rl] = sec[0]
+            elif mode in (MODE_FSE, MODE_FSE_PL):
+                if pf.shared:
+                    tbl, l2, payload = shared_tbl, shared_l2, sec
+                else:
+                    tbl, l2, payload = _read_block_header(sec)
+                dst = pl_groups if mode == MODE_FSE_PL else groups
+                dst.setdefault((rl, l2), []).append(
+                    (i, payload, tbl, int(pf.offs[i]) + len(sec) - len(payload)))
             else:
-                tbl, l2, payload = _read_block_header(sec)
-            dst = pl_groups if mode == MODE_FSE_PL else groups
-            dst.setdefault((rl, l2), []).append((i, payload, tbl))
-        else:
-            raise ValueError(f"bad block mode {mode}")
+                raise ValueError(f"bad block mode {mode}")
 
     # each group splits into one contiguous share per mesh entry
-    for decode, grouped in ((_decode_group, groups),
-                            (_decode_group_pl, pl_groups)):
-        for (rl, log2), items in grouped.items():
-            for dev, lo, hi in _shares(len(items), mesh):
-                decode(items[lo:hi], rl, log2, pf, out, base, dev)
-    if pf.crcs is not None:
-        for i in wanted:
-            o = i * pf.block_size - base
-            rl = min(pf.block_size, pf.total_len - i * pf.block_size)
-            if zlib.crc32(out[o: o + rl]) & 0xFFFFFFFF != int(pf.crcs[i]):
-                raise ValueError(f"block {i}: crc mismatch (corrupt frame)")
-    if cb_view is not None:
-        if cb_direct is None:  # unaligned range: one staging copy
-            np.frombuffer(cb_view, np.uint8, count=length)[:] = \
-                out[start - base: start - base + length]
-        return length
-    return out[start - base: start - base + length].tobytes()
+    for (rl, log2), items in groups.items():
+        for dev, lo, hi in _shares(len(items), mesh):
+            _decode_group(items[lo:hi], rl, log2, pf, out, base, dev)
+    pl_calls = [(items[lo:hi], rl, log2, dev)
+                for (rl, log2), items in pl_groups.items()
+                for dev, lo, hi in _shares(len(items), mesh)]
+    # device repack: the span of the frame that holds a device's per-lane
+    # payloads goes to it once, whatever the number of groups and shares
+    spans: dict = {}
+    for items, _, _, dev in pl_calls:
+        if _device_repack(dev):
+            lo, hi = spans.get(dev, (items[0][3], 0))
+            spans[dev] = (min(lo, items[0][3]),
+                          max(hi, items[-1][3] + len(items[-1][1])))
+    with _stage("ect.decompress.h2d"):
+        on_dev = {dev: (DR.bytes_on(pf.frame, lo, hi, dev), lo)
+                  for dev, (lo, hi) in spans.items()}
+    for items, rl, log2, dev in pl_calls:
+        _decode_group_pl(items, rl, log2, pf, out, base, dev, on_dev.get(dev))
+    with _stage("ect.decompress.output"):
+        if pf.crcs is not None:
+            for i in wanted:
+                o = i * pf.block_size - base
+                rl = min(pf.block_size, pf.total_len - i * pf.block_size)
+                if zlib.crc32(out[o: o + rl]) & 0xFFFFFFFF != int(pf.crcs[i]):
+                    raise ValueError(
+                        f"block {i}: crc mismatch (corrupt frame)")
+        if cb_view is not None:
+            if cb_direct is None:  # unaligned range: one staging copy
+                np.frombuffer(cb_view, np.uint8, count=length)[:] = \
+                    out[start - base: start - base + length]
+            return length
+        return out[start - base: start - base + length].tobytes()
 
 
-def _decode_group_pl(items, raw_len, log2, pf, out, out_base, dev):
+def _decode_group_pl(items, raw_len, log2, pf, out, out_base, dev,
+                     span=None):
     """Decode MODE_FSE_PL blocks sharing one (raw_len, log2): the lane
-    sizes and framing are checked on the host, the C++ lane split fills the
+    sizes and framing are checked on the host, the lane split fills the
     (B, W, k) word layout, and B1 (its plain version on CPU) decodes
-    ~64 MiB of raw bytes per call."""
+    ~64 MiB of raw bytes per call. ``items`` are (block, payload, table,
+    the payload's offset in the frame). With ``span`` (a uint8 tensor on
+    ``dev`` holding the frame from byte ``span[1]`` on, past every item's
+    payload) the split runs on the device (D2) from those bytes; without
+    it the C++ split runs on the host and the words are copied."""
     k = pf.k
     if not (TABLE_LOG_MIN <= log2 <= TABLE_LOG_MAX):
         raise ValueError(f"corrupt frame: table log {log2} out of range")
@@ -687,66 +754,85 @@ def _decode_group_pl(items, raw_len, log2, pf, out, out_base, dev):
     R = raw_len // k - 1
     B = len(items)
     sizes = np.zeros((B, k), np.int32)
-    payloads = []
+    payloads = []  # each block's lane streams, for the C++ split only
+    lane_offs = np.zeros(B, np.int64)  # each block's lane streams, in frame
     norm_tables = np.zeros((B, 256), np.int32)
-    for j, (i, sec, nt) in enumerate(items):
-        if pf.packed:
-            # bit-packed wire (FLAG_PACKED): compressed size table, then
-            # bit-granularity lane streams (total bits, last dead bits 0)
-            sz, lanes_sec = _unpack_size_table(sec, k)
+    with _stage("ect.decompress.checks"):
+        for j, (i, sec, nt, sec_off) in enumerate(items):
+            if pf.packed:
+                # bit-packed wire (FLAG_PACKED): compressed size table, then
+                # bit-granularity lane streams (total bits, last dead bits 0)
+                sz, lanes_sec = _unpack_size_table(sec, k)
+                if (sz < log2).any() or (sz > (R + 1) * log2).any():
+                    # the encoder never emits more than (R+1)*log2 bits per
+                    # lane; an oversized claim would make the words allocation
+                    # scale with the claim, not the payload
+                    raise ValueError(f"block {i}: bad lane sizes")
+                total = int(sz.astype(np.int64).sum())
+                if (total + 7) // 8 != len(lanes_sec):
+                    raise ValueError(f"block {i}: bad lane sizes")
+                if total & 7 and lanes_sec[-1] >> (total & 7):
+                    raise ValueError(f"block {i}: lane framing error")
+                sizes[j] = sz
+                if span is None:
+                    payloads.append(lanes_sec)
+                lane_offs[j] = sec_off + len(sec) - len(lanes_sec)
+                norm_tables[j] = nt
+                continue
+            if len(sec) < 2 * k:
+                raise ValueError(f"block {i}: truncated lane sizes")
+            sz = np.frombuffer(sec[: 2 * k], "<u2").astype(np.int32)
             if (sz < log2).any() or (sz > (R + 1) * log2).any():
-                # the encoder never emits more than (R+1)*log2 bits per
-                # lane; an oversized claim would make the words allocation
-                # scale with the claim, not the payload
                 raise ValueError(f"block {i}: bad lane sizes")
-            total = int(sz.astype(np.int64).sum())
-            if (total + 7) // 8 != len(lanes_sec):
+            if int(((sz + 7) >> 3).sum()) != len(sec) - 2 * k:
                 raise ValueError(f"block {i}: bad lane sizes")
-            if total & 7 and lanes_sec[-1] >> (total & 7):
+            # framing check (the marker-bit rule's per-lane analog, reference
+            # src/bitstream/stack_reader.rs:81-83): the dead bits above each
+            # lane's top bit must be zero
+            buf = np.frombuffer(sec, np.uint8, offset=2 * k)
+            last = buf[np.cumsum((sz + 7) >> 3) - 1].astype(np.int32)
+            if (last >> (((sz - 1) & 7) + 1)).any():
                 raise ValueError(f"block {i}: lane framing error")
             sizes[j] = sz
-            payloads.append(lanes_sec)
+            if span is None:
+                payloads.append(sec[2 * k:])
+            lane_offs[j] = sec_off + 2 * k
             norm_tables[j] = nt
-            continue
-        if len(sec) < 2 * k:
-            raise ValueError(f"block {i}: truncated lane sizes")
-        sz = np.frombuffer(sec[: 2 * k], "<u2").astype(np.int32)
-        if (sz < log2).any() or (sz > (R + 1) * log2).any():
-            raise ValueError(f"block {i}: bad lane sizes")
-        if int(((sz + 7) >> 3).sum()) != len(sec) - 2 * k:
-            raise ValueError(f"block {i}: bad lane sizes")
-        # framing check (the marker-bit rule's per-lane analog, reference
-        # src/bitstream/stack_reader.rs:81-83): the dead bits above each
-        # lane's top bit must be zero
-        buf = np.frombuffer(sec, np.uint8, offset=2 * k)
-        last = buf[np.cumsum((sz + 7) >> 3) - 1].astype(np.int32)
-        if (last >> (((sz - 1) & 7) + 1)).any():
-            raise ValueError(f"block {i}: lane framing error")
-        sizes[j] = sz
-        payloads.append(sec[2 * k:])
-        norm_tables[j] = nt
     W = -(-(int(sizes.max()) // 32 + 3) // 16) * 16
 
-    # the host splits and queues the h2d of every chunk and dispatches its
-    # kernel, then drains in order: the write-back of chunk i overlaps the
-    # device decode of the chunks after it
-    # (entropy_coders_tpu/frame.py:854-868)
+    # the host queues every chunk's split (or, on the host route, splits
+    # and queues the h2d) and dispatches its kernel, then drains in order:
+    # the write-back of chunk i overlaps the device decode of the chunks
+    # after it (entropy_coders_tpu/frame.py:854-868)
     chunk = max(1, _cdiv(_CHUNK_RAW, raw_len))
     handles = []
-    for j0 in range(0, B, chunk):
-        words = PL.lane_split_batch(payloads[j0: j0 + chunk],
-                                    sizes[j0: j0 + chunk], k, W,
-                                    pack_bits=bool(pf.packed))
-        handles.append((j0, PL.decode_lanes_norm(
-            to_device(words, dev, non_blocking=True),
-            to_device(sizes[j0: j0 + chunk], dev, non_blocking=True),
-            norm_tables[j0: j0 + chunk], k=k, L=log2, R=R, lazy=True)))
+    with _stage("ect.decompress.dispatch"):
+        for j0 in range(0, B, chunk):
+            sizes_dev = to_device(sizes[j0: j0 + chunk], dev, non_blocking=True)
+            if span is not None:
+                # every check above has passed: each block's streams lie
+                # inside its section, so inside the bytes on the device
+                words = DR.lane_split_device(
+                    span[0], to_device(lane_offs[j0: j0 + chunk] - span[1], dev,
+                                       non_blocking=True),
+                    sizes_dev, k=k, W=W, pack_bits=bool(pf.packed))
+            else:
+                with _stage("ect.decompress.split_cpp"):
+                    words = PL.lane_split_batch(
+                        payloads[j0: j0 + chunk], sizes[j0: j0 + chunk], k,
+                        W, pack_bits=bool(pf.packed))
+                words = to_device(words, dev, non_blocking=True)
+            handles.append((j0, PL.decode_lanes_norm(
+                words, sizes_dev, norm_tables[j0: j0 + chunk], k=k, L=log2, R=R,
+                lazy=True)))
     for j0, collect in handles:
-        syms, finals = collect()
-        for jj in range(syms.shape[0]):
-            o = items[j0 + jj][0] * pf.block_size - out_base
-            out[o: o + R * k] = syms[jj].reshape(-1)
-            out[o + R * k: o + raw_len] = finals[jj]
+        with _stage("ect.decompress.collect"):
+            syms, finals = collect()
+        with _stage("ect.decompress.write_back"):
+            for jj in range(syms.shape[0]):
+                o = items[j0 + jj][0] * pf.block_size - out_base
+                out[o: o + R * k] = syms[jj].reshape(-1)
+                out[o + R * k: o + raw_len] = finals[jj]
 
 
 def _decode_group(items, raw_len, log2, pf, out, out_base, dev):
@@ -755,12 +841,12 @@ def _decode_group(items, raw_len, log2, pf, out, out_base, dev):
     k = min(pf.k, raw_len)
     B = len(items)
     # payload words, padded to the group max (+ guard words)
-    max_bytes = max(len(p) for _, p, _ in items)
+    max_bytes = max(len(p) for _, p, _, _ in items)
     Wd = _cdiv(max_bytes, 4) + 2
     words = np.zeros((B, Wd), np.uint32)
     total_bits = np.zeros(B, np.int64)
     norm_tables = np.zeros((B, 256), np.int32)
-    for j, (i, payload, nt) in enumerate(items):
+    for j, (i, payload, nt, _) in enumerate(items):
         buf = np.frombuffer(payload, np.uint8)
         nz = np.flatnonzero(buf)
         if nz.size == 0:
@@ -788,7 +874,7 @@ def _decode_group(items, raw_len, log2, pf, out, out_base, dev):
         raise ValueError("decoded length mismatch: corrupt frame")
     syms = syms.cpu().numpy().reshape(B, -1)
     finals = finals.cpu().numpy()
-    for j, (i, _, _) in enumerate(items):
+    for j, (i, _, _, _) in enumerate(items):
         o = i * pf.block_size - out_base
         out[o: o + m] = syms[j, :m]
         out[o + m: o + raw_len] = finals[j]

@@ -11,8 +11,9 @@ one link:
          -o build/entropy_coders_tpu_torch/<lib>.so *.o
 
 The build runs at first use, on a machine with the CUDA toolkit, into
-``build/entropy_coders_tpu_torch/`` at the repository root. The library's
-name carries a hash of the sources and flags, so an edited source builds
+``build/entropy_coders_tpu_torch/`` at the repository root, or into a
+per-user cache directory when the package is installed (``builddir``). The
+library's name carries a hash of the sources and flags, so an edited source builds
 anew and an unchanged one loads the library already built. No binary is
 committed. ``python -m entropy_coders_tpu_torch.kernels.build`` builds and
 prints the compiler's register and shared-memory report.
@@ -28,15 +29,17 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..builddir import build_dir, writable_build_dir
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "entropy_coders_tpu_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c"]
 LINK_FLAGS = [*ARCH, "-shared"]
 
 # ctypes signatures of the launchers: every pointer and the stream are
-# c_void_p (a plain int would be cut to 32 bits), every size a c_int.
+# c_void_p (a plain int would be cut to 32 bits), every size a c_int, every
+# 64-bit count a c_longlong.
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # words, sizes, dtab, syms, finals, cursors, B, W, k, L, R, T, RF,
@@ -62,6 +65,12 @@ _SIGNATURES = {
     "ect_ring_max_ctas": [_I],
     # dev, peer
     "ect_ring_enable_peer": [_I, _I],
+    # words, sizes, bit_off, out, n_out, B, W, k, pack, stream (repack.cu)
+    "ect_lane_merge": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    # packed, n_packed, sizes, bit_off, words, B, W, k, pack, stream
+    "ect_lane_split": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P],
+    # norm, dec, next_state, tt_bits, tt_fs, B, L, stream (tables.cu)
+    "ect_build_tables": [_P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None
@@ -85,7 +94,7 @@ def library_path() -> Path:
     for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libect_torch_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libect_torch_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -93,7 +102,7 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    writable_build_dir()
     nvcc = _nvcc()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     srcs = sorted(CSRC.glob("*.cu"))

@@ -5,7 +5,8 @@
         entropy_coders_tpu_torch/native/fse_native.cpp
 
 The build runs at first use into ``build/entropy_coders_tpu_torch/`` at the
-repository root, beside the CUDA kernels' library. The name carries a hash
+repository root, or into a per-user cache directory when the package is
+installed (``builddir``), beside the CUDA kernels' library. The name carries a hash
 of the source and the flags, so an edited source builds anew and an
 unchanged one loads the library already built; the name differs from the
 JAX package's ``libfse_native.so``, so a process that loads both keeps them
@@ -22,8 +23,9 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..builddir import build_dir, writable_build_dir
+
 SRC = Path(__file__).resolve().parent / "fse_native.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "entropy_coders_tpu_torch"
 FLAGS = ["-O3", "-std=c++17", "-fPIC", "-fopenmp", "-shared"]
 
 # what the build in this process cost; stays None when the library was
@@ -35,7 +37,7 @@ def library_path() -> Path:
     """Where the library for the current source and flags lives."""
     h = hashlib.sha256(" ".join(FLAGS).encode())
     h.update(SRC.read_bytes())
-    return BUILD_DIR / f"libect_torch_host_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libect_torch_host_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -43,7 +45,7 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    writable_build_dir()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:

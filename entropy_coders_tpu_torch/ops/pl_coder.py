@@ -26,9 +26,17 @@ is launched and its d2h queued on a side stream, and a ``collect`` closure
 waits on that chunk's event alone (the container dispatches every chunk,
 then drains them in order).
 
-Tables are flat (``tables_from_norm``), built on the host by the port's C++
-library (``native``), bit-identical to the reference's. None of the TPU's
-gather-row layouts, epochs or fusion carry over: they change no wire byte.
+Tables are flat (``tables_from_norm``), bit-identical to the reference's:
+built on the host by the port's C++ library (``native``) or, on the
+``host_tables=False`` route, on the device by ``ops.tables`` (kernel D3).
+None of the TPU's gather-row layouts, epochs or fusion carry over: they
+change no wire byte.
+
+The host-side lane repack (wire <-> padded (W, k) words) is the C++
+library's: ``lane_merge_batch``/``lane_split_batch`` for a block group, and
+the JAX package's single-block entries ``lane_split``, ``lane_merge``,
+``lane_merge_bits`` and ``lane_split_bits`` over them. The repack on the
+card is ``ops.device_repack``.
 """
 
 from __future__ import annotations
@@ -37,8 +45,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import native
+from ..kernels.launch import check as _check, launch as _launch
+from . import tables as TB
 from .unsigned import as_int64, int64_to_u32, signed_view, to_device, to_numpy
 
 __all__ = [
@@ -54,8 +65,12 @@ __all__ = [
     "encode_lanes_ref",
     "encode_w_bound",
     "lane_config",
+    "lane_merge",
     "lane_merge_batch",
+    "lane_merge_bits",
+    "lane_split",
     "lane_split_batch",
+    "lane_split_bits",
     "tables_from_norm",
 ]
 
@@ -81,38 +96,49 @@ class LaneTables(NamedTuple):
     next_state: torch.Tensor  # (B, 2^L) uint16 encode next-state table
 
 
-def tables_from_norm(norm_tables: np.ndarray, L: int, device) -> LaneTables:
+# What ``host_tables=None`` means on a CUDA device: the route that was
+# faster end to end at the default point (1,024 tables a 128 MiB call; see
+# ``tables_from_norm``). Also the private switch ``chip_smoke.py`` flips
+# to run the two routes in turns.
+HOST_TABLES_ON_CUDA = False
+
+
+def tables_from_norm(norm_tables: np.ndarray, L: int, device,
+                     host_tables: bool | None = None) -> LaneTables:
     """(B, 256) int32 normalized histograms sharing table log ``L`` -> the
-    flat decode and encode tables on ``device``, built by
-    ``native.build_{encode,decode}_tables`` (what the JAX host-table route
-    feeds its kernels, ``pl_coder.py:775-778, 931``). A CUDA copy is
-    queued without waiting for the card (``unsigned.to_device``'s
+    flat decode and encode tables on ``device``.
+
+    ``host_tables`` picks the route, as in the JAX package
+    (``pl_coder.py:736, 895``); both give identical bytes (tests pin it).
+    ``True``: built on the host by ``native.build_{encode,decode}_tables``
+    and copied (what the JAX host-table route feeds its kernels,
+    ``pl_coder.py:775-778, 931``). ``False``: the counts are checked on the
+    host, copied, and ``ops.tables.build_tables`` builds the tables where
+    they are used: kernel D3 on a CUDA device, its plain version on the
+    CPU. ``None``: the C++ build on the CPU; on CUDA the device build
+    (``HOST_TABLES_ON_CUDA``), the faster route end to end at the default
+    point, 128 MiB in 1,024 blocks of 128 KiB, on an NVIDIA H100 80GB HBM3
+    at 700.00 W (``chip_smoke.py`` phase ``routes``, medians of four runs
+    in turns, in two calls: compress 169 and 184 ms against 211 and 250 ms
+    with the tables built on the host, decompress 365 and 296 ms against
+    396 and 297 ms; in two later calls of six runs the two were within
+    4 ms of each other, and at 8 tables a call the routes tie). A CUDA
+    copy is queued without waiting for the card (``unsigned.to_device``'s
     ``non_blocking``), so a lazy call dispatches behind the chunks before
-    it."""
-    nt = np.ascontiguousarray(norm_tables, np.int32)
-    table, tt_bits, tt_fs = native.build_encode_tables(nt, int(L))
-    dec = native.build_decode_tables(nt, int(L))
-    return LaneTables(*(to_device(t, device, non_blocking=True)
-                        for t in (dec, tt_bits, tt_fs, table)))
-
-
-def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, want {tuple(shape)}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, want {dtype}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, want {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _launch(fn, *args) -> None:
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+    it. A malformed table raises ValueError on either route."""
+    dev = torch.device(device)
+    if host_tables is None:
+        host_tables = HOST_TABLES_ON_CUDA if dev.type == "cuda" else True
+    with record_function("ect.tables"):
+        if not host_tables:
+            nt = TB.check_norm_tables(norm_tables, int(L))
+            return LaneTables(*TB.build_tables(
+                to_device(nt, dev, non_blocking=True), int(L)))
+        nt = np.ascontiguousarray(norm_tables, np.int32)
+        table, tt_bits, tt_fs = native.build_encode_tables(nt, int(L))
+        dec = native.build_decode_tables(nt, int(L))
+        return LaneTables(*(to_device(t, dev, non_blocking=True)
+                            for t in (dec, tt_bits, tt_fs, table)))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -292,10 +318,11 @@ def _d2h(tensors, after: torch.cuda.Event, role: int):
 
 
 def decode_lanes_norm(words, sizes, norm_tables, *, k: int, L: int, R: int,
-                      lazy: bool = False):
+                      lazy: bool = False, host_tables: bool | None = None):
     """Batched decode from lane words and the (B, 256) int32 normalized
     histograms (all sharing table log ``L``), tables built by
-    ``tables_from_norm`` on the words' device. words (B, W, k) uint32 and
+    ``tables_from_norm`` on the words' device (``host_tables`` picks its
+    route; the bytes out are identical). words (B, W, k) uint32 and
     sizes (B, k) int32 tensors in; (syms (B, R, k) uint8, finals (B, k)
     uint8) out, on the same device. Raises ValueError on a corrupt stream
     (any lane cursor not exactly drained).
@@ -309,7 +336,7 @@ def decode_lanes_norm(words, sizes, norm_tables, *, k: int, L: int, R: int,
     so every chunk's words and outputs are on the card at once."""
     if words.dim() != 3 or words.shape[2] != k:
         raise ValueError("k must match words (B, W, k)")
-    tables = tables_from_norm(norm_tables, L, words.device)
+    tables = tables_from_norm(norm_tables, L, words.device, host_tables)
     syms, finals, cursors = decode_lanes(words, sizes, tables.dec, L=L, R=R)
     if not lazy:
         if bool((cursors != 0).any()):
@@ -450,10 +477,11 @@ def _w_act(max_bits: int, W: int) -> int:
 
 
 def encode_lanes_norm(blocks, norm_tables, *, k: int, L: int, W: int,
-                      lazy: bool = False):
+                      lazy: bool = False, host_tables: bool | None = None):
     """Batched encode from raw blocks (B, n) uint8 with n = (R+1)*k and the
     (B, 256) int32 normalized histograms (all sharing table log ``L``),
-    tables built by ``tables_from_norm`` on the blocks' device.
+    tables built by ``tables_from_norm`` on the blocks' device
+    (``host_tables`` picks its route; the bytes out are identical).
     Returns (words (B, w_act, k) uint32, sizes (B, k) int32) on that
     device: ``w_act`` is the JAX package's count of populated rows,
     ``min(ceil((max(sizes) // 32 + 2) / 16) * 16, W)``.
@@ -472,7 +500,7 @@ def encode_lanes_norm(blocks, norm_tables, *, k: int, L: int, W: int,
     call, well inside an 80 GB card)."""
     B = blocks.shape[0]
     dev = blocks.device
-    tables = tables_from_norm(norm_tables, L, dev)
+    tables = tables_from_norm(norm_tables, L, dev, host_tables)
     words, sizes = encode_lanes(blocks, tables, k=k, L=L, W=W)
     if not lazy:
         if B == 0:
@@ -516,3 +544,53 @@ def lane_split_batch(payloads, sizes_bits: np.ndarray, k: int, W: int,
     kernel layout from its wire payloads, in one native call."""
     return native.lane_split_batch(payloads, np.asarray(sizes_bits), k, W,
                                    pack_bits)
+
+
+def _split_sizes(sizes_bits, k: int) -> tuple[np.ndarray, int]:
+    """(sizes as int64, W) of a single-block split: W is the longest lane's
+    words plus two guard rows (the JAX package's). The JAX entries assert
+    the sizes' shape; here a wrong shape raises ValueError."""
+    sizes_bits = np.asarray(sizes_bits, np.int64)
+    if sizes_bits.shape != (k,):
+        raise ValueError(f"sizes_bits has shape {sizes_bits.shape}, want "
+                         f"({k},)")
+    return sizes_bits, int((int(sizes_bits.max()) + 31) // 32) + 2
+
+
+def lane_split(payload: bytes, sizes_bits: np.ndarray, k: int):
+    """Split one block's wire payload of byte-aligned concatenated lane
+    streams into the padded (W, k) uint32 array B1 reads. Returns (words,
+    W); ValueError when the payload is shorter than the sizes claim."""
+    sizes_bits, W = _split_sizes(sizes_bits, k)
+    if int(((sizes_bits + 7) // 8).sum()) > len(payload):
+        raise ValueError("lane payload too short")
+    return native.lane_split_batch([bytes(payload)], sizes_bits[None], k,
+                                   W)[0], W
+
+
+def lane_merge(words: np.ndarray, sizes_bits: np.ndarray) -> bytes:
+    """Inverse of ``lane_split``: compact one block's padded (W, k) words
+    into byte-aligned concatenated lane streams."""
+    words = np.asarray(words)
+    return native.lane_merge_batch(words[None], np.asarray(sizes_bits)[None],
+                                   False)[0]
+
+
+def lane_merge_bits(words: np.ndarray, sizes_bits: np.ndarray) -> bytes:
+    """Bit-packed lane merge of one block (frame FLAG_PACKED): the lane
+    streams concatenate at bit granularity, without the <= 7 dead bits a
+    byte-aligned lane carries."""
+    words = np.asarray(words)
+    return native.lane_merge_batch(words[None], np.asarray(sizes_bits)[None],
+                                   True)[0]
+
+
+def lane_split_bits(payload: bytes, sizes_bits: np.ndarray, k: int):
+    """Inverse of ``lane_merge_bits`` into the padded (W, k) uint32 layout.
+    Returns (words, W); ValueError when the payload is shorter than the
+    sizes claim."""
+    sizes_bits, W = _split_sizes(sizes_bits, k)
+    if (int(sizes_bits.sum()) + 7) // 8 > len(payload):
+        raise ValueError("packed lane payload too short")
+    return native.lane_split_batch([bytes(payload)], sizes_bits[None], k, W,
+                                   True)[0], W

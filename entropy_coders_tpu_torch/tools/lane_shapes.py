@@ -255,9 +255,9 @@ def load_old(old_root: Path) -> tuple[ctypes.CDLL, Path]:
     srcs = [old_root / "entropy_coders_tpu_torch" / "csrc" / f"{n}.cu"
             for n in ("pl_encode", "pl_decode")]
     h = hashlib.sha256(b"".join(s.read_bytes() for s in srcs)).hexdigest()[:16]
-    out = KB.BUILD_DIR / f"libect_torch_old_{h}.so"
+    out = KB.build_dir() / f"libect_torch_old_{h}.so"
     if not out.exists():
-        KB.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        KB.writable_build_dir()
         flags = [f for f in KB.COMPILE_FLAGS if f != "-c"]
         r = subprocess.run([KB._nvcc(), *flags, "-shared", "-o", str(out),
                             *map(str, srcs)], capture_output=True, text=True)

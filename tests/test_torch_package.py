@@ -1,7 +1,9 @@
 """The port imports torch and never jax: a fresh interpreter that imports
 entropy_coders_tpu_torch (and its parallel, tools and utils packages, its
 stream, checkpoint and CLI modules), round-trips a frame on the CPU,
-sharded and not, decodes one with the layout harness, streams a file,
+sharded and not and on the device-repack route, builds tables with
+``ops.tables``, merges lanes with ``ops.device_repack``, decodes a frame
+with the layout harness, streams a file,
 round-trips a checkpoint and an interleaved payload (its tables from the
 port's own host library) must not have loaded jax (the machine with the
 card has none). The JAX package is blocked in ``sys.modules`` before the
@@ -63,6 +65,26 @@ syms, finals, cur = H.decode_lanes_layout(
 assert not cur.any() and (finals.numpy() == blocks.reshape(2, 32, 128)[:, 31]).all()
 assert H.LAYOUT_LAUNCHES == dict.fromkeys(H.LAYOUTS, 0)
 assert T.__version__
+from entropy_coders_tpu_torch import builddir, frame as TF
+from entropy_coders_tpu_torch.ops import device_repack as DR, tables as TB
+from entropy_coders_tpu_torch.tools import device_host
+host = PL.tables_from_norm(nt, L, "cpu", host_tables=True)
+dev = PL.tables_from_norm(nt, L, "cpu", host_tables=False)
+assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+           for a, b in zip(host, dev))
+assert torch.equal(TB.build_decode_table(torch.from_numpy(nt), log2=L).view(
+    torch.uint8), host.dec.view(torch.uint8))
+flat, offs = DR.lane_merge_device(words, torch.from_numpy(sizes),
+                                  pack_bits=packed)
+assert [bytes(flat[offs[b]: offs[b + 1]].numpy()) for b in range(2)] == [
+    bytes(p) for p in payloads]
+TF._DEVICE_REPACK = True  # the container's device-repack route, on the CPU
+assert T.compress(blocks, block_size=4096, k=128, lanes=True, table_log=9,
+                  device="cpu") == frame
+assert T.decompress(frame, device="cpu") == blocks.tobytes()
+TF._DEVICE_REPACK = None
+assert (DR.MERGE_LAUNCHES, DR.SPLIT_LAUNCHES, TB.TABLE_LAUNCHES) == (0, 0, 0)
+assert builddir.build_dir().name == "entropy_coders_tpu_torch"
 import os, tempfile
 from types import SimpleNamespace
 from entropy_coders_tpu_torch import native
