@@ -27,7 +27,12 @@ the kernels' SASS counts them, the larger), the chain under the card's
 measured instruction latencies, and the share of the bound; D1-D3 are
 timed at the same shapes on B2's real output (split of merge is the
 identity) beside their byte bounds, their plain versions and the C++ calls
-in turns.
+in turns. A wrapper call of D1 and of D2 at each shape runs once under
+``torch.profiler``: it must issue at most two kernels and no memset or
+fill. When ``build/parent`` holds a checkout of an earlier commit whose
+``repack.cu`` has the first design's launchers (``git archive <commit> |
+tar -x -C build/parent``), D1 and D2 of that design are timed in turns
+with the current ones (``old_ms``); without it ``old_ms`` is null.
 Phase ``layouts`` drives the decode table-layout tools
 (``entropy_coders_tpu_torch.tools``, kernels B4/B5): ``l10_attack.run`` at
 L=10 on the 128 MiB data and ``upack_hilog.run`` at L=11 and 13 (64 MiB,
@@ -66,7 +71,9 @@ drives the multi-device path (``entropy_coders_tpu_torch.parallel``):
   ``ring_all_gather`` at n = 8 of the throughput point's lane words, one
   (264, 16384) u32 block per rank, timed against the plain version. Peer
   ranks (distinct GPUs) run the same cases, and a timed full-width ring,
-  when the machine has two cards or more.
+  when the machine has two cards or more; then, as B3's yardstick, NCCL's
+  ``all_gather_into_tensor`` of the same per-rank chunk, one process a
+  card (this script run with ``--nccl-worker``), on the same host clock.
 * ``sharded``: the throughput point through ``parallel.compress`` /
   ``decompress`` on ``default_mesh()`` and on eight virtual ranks, and 5
   blocks over 8 ranks: each frame equals ``compress``'s, byte for byte,
@@ -1032,6 +1039,10 @@ def phase_timing(data):
 
     text, lat = sass_and_latencies()
     clocks = LS.card_clocks()
+    parent = ROOT / "build" / "parent"
+    old_repack = (DH.load_old(parent) if (
+        parent / "entropy_coders_tpu_torch" / "csrc" / "repack.cu").exists()
+        else None)
     shapes = {}
     for name in LS.SHAPES:
         inp = LS.shape_inputs(name, data)
@@ -1066,7 +1077,8 @@ def phase_timing(data):
         row["clocks"] = {"before": clocks, "after": LS.card_clocks()}
         # D1-D3 on this shape's tensors: the wire form the point uses
         row["device_host"] = {
-            "repack": DH.shape_repack(inp, pack_bits=name == "parity"),
+            "repack": DH.shape_repack(inp, pack_bits=name == "parity",
+                                      old=old_repack),
             "tables": DH.shape_tables(inp)}
         shapes[name] = row
         emit(f"timing_shape_{name}", **row)
@@ -1336,11 +1348,27 @@ def phase_ring(data):
             "n": n, "ms": ms_p, "ms_runs": runs_p, "plain_ms": plain_p,
             "plain_ms_runs": plain_runs_p,
             "nvlink_bound_ms": (n - 1) * chunk / 450e9 * 1e3,
-            "clock": "host, all cards synchronised"}
+            "clock": "host, all cards synchronised",
+            "nccl_all_gather": phase_nccl(n, tuple(shards[0].shape))}
     else:
         peer = "not run: 1 device"
     emit("ring", cases=cases, full_width=full, peer=peer, max_abs_err=worst)
-    return worst, full
+    return worst, full, peer
+
+
+def _ring_library(peer) -> dict:
+    """B3's yardstick fields: NCCL's ``all_gather_into_tensor`` across the
+    cards of the peer full-width case, with the peer ring's time on the
+    same host clock beside it; null on one card, with the reason."""
+    if not isinstance(peer, dict):
+        return {"library_ms": None,
+                "library": "NCCL all_gather_into_tensor needs >= 2 cards; "
+                           "this machine has 1"}
+    nccl = peer["full_width"]["nccl_all_gather"]
+    return {"library_ms": nccl["ms"],
+            "library": f"NCCL all_gather_into_tensor, {nccl['n']} cards, "
+                       "host clock",
+            "peer_ms": peer["full_width"]["ms"]}
 
 
 def phase_sharded(T, data, single_frame):
@@ -1406,6 +1434,87 @@ def phase_sharded(T, data, single_frame):
     emit("sharded", meshes=out, five_blocks_bytes=len(frame5),
          shared_frame_bytes=len(shared), shared_compress_s=shared_s,
          shared_log2=s[1])
+
+
+def phase_nccl(n: int, shape) -> dict:
+    """B3's yardstick: ``torch.distributed.all_gather_into_tensor`` over
+    NCCL, one process a card (this script with ``--nccl-worker``), each
+    rank's chunk one ``shape`` u32 block, as in the peer full-width ring.
+    Returns rank 0's line: the median over runs of the slowest rank's host
+    time, each rank's card synchronised before and after."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--nccl-worker",
+         str(port), str(n), str(i), *map(str, shape)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(n)]
+    outs = []
+    try:
+        for i, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"nccl worker {i} timed out")
+            if p.returncode != 0:
+                raise SmokeFailure(f"nccl worker {i} failed "
+                                   f"({p.returncode}):\n{err[-4000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return json.loads(outs[0].strip().splitlines()[-1])
+
+
+def nccl_worker(port: int, num: int, rank: int, rows: int, cols: int) -> int:
+    """One process of ``phase_nccl``: rank ``rank`` of ``num`` on card
+    ``rank``; rank 0 prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=num, rank=rank)
+
+    def chunk_of(r):
+        g = torch.Generator().manual_seed(0xB3 + r)
+        return torch.randint(-(1 << 31), 1 << 31, (rows, cols),
+                             dtype=torch.int64, generator=g).to(torch.int32)
+
+    chunk = chunk_of(rank).to(dev)
+    out = torch.empty((num * rows, cols), dtype=torch.int32, device=dev)
+
+    def call():
+        dist.all_gather_into_tensor(out, chunk)
+
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize(dev)
+    check(all(torch.equal(out.view(num, rows, cols)[r].cpu(), chunk_of(r))
+              for r in range(num)),
+          f"nccl all_gather (rank {rank}) != every rank's chunk")
+    times = []
+    for _ in range(7):
+        dist.barrier(device_ids=[rank])
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    slowest = torch.tensor(times, dtype=torch.float64, device=dev)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+    slowest = slowest.tolist()
+    if rank == 0:
+        print(json.dumps({"n": num, "chunk_shape": [rows, cols],
+                          "chunk_bytes": rows * cols * 4,
+                          "ms": statistics.median(slowest),
+                          "ms_runs": slowest,
+                          "clock": "host, the slowest rank's each run, "
+                                   "every card synchronised"}), flush=True)
+    dist.destroy_process_group()
+    return 0
 
 
 def _free_port() -> int:
@@ -1540,9 +1649,10 @@ def run_single(T, PL, gg, data):
 
 def run_parallel(T, PL, R, data):
     """The multi-device phases (``ring``, ``sharded``, ``multihost``);
-    returns B3's largest difference, its full-width timing and the
-    multi-device path's launch counts."""
-    ring_err, ring_full = phase_ring(data)
+    returns B3's largest difference, its full-width timing, its peer-rank
+    results (a string on one card) and the multi-device path's launch
+    counts."""
+    ring_err, ring_full, ring_peer = phase_ring(data)
     single = T.compress(data, device="cuda", **THROUGHPUT)
     expected = {leg: hashlib.sha256(
         single if not kw else T.compress(data, device="cuda",
@@ -1562,7 +1672,7 @@ def run_parallel(T, PL, R, data):
           f"a kernel of the multi-device path never launched: {par}")
     emit("launches_parallel", **par)
     phase_multihost(expected)
-    return ring_err, ring_full, par
+    return ring_err, ring_full, ring_peer, par
 
 
 def _lane_row(name, kind, src, replaces, launches, worst, shapes):
@@ -1597,34 +1707,47 @@ def _device_host_row(name, src, replaces, launches, shapes, pick, checked):
     tp = pick(shapes["throughput"]["device_host"])
     err = max([checked] + [pick(r["device_host"])["max_abs_err"]
                            for r in shapes.values()])
-    return {"name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": tp["ms"], "plain_ms": tp["plain_ms"],
-            "bound_ms": tp["bound_ms"], "bound_by": tp["bound_by"],
-            "library_ms": None, "cpp_host_ms": tp["cpp_ms"],
-            "shapes": {s: {k: v for k, v in pick(r["device_host"]).items()
-                           if k in ("ms", "kernel_ms", "plain_ms", "cpp_ms",
-                                    "bound_ms", "bytes")}
-                       | {"B": r["B"], "k": r["k"], "L": r["L"]}
-                       for s, r in shapes.items()}}
+    keys = ("ms", "kernel_ms", "launcher_ms", "old_ms", "old_kernel_ms",
+            "old_device_ms", "plain_ms", "cpp_ms", "bound_ms", "bytes")
+    row = {"name": name, "route": "cuda", "source": src,
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": tp["ms"], "plain_ms": tp["plain_ms"],
+           "bound_ms": tp["bound_ms"], "bound_by": tp["bound_by"],
+           "library_ms": None, "cpp_host_ms": tp["cpp_ms"],
+           "shapes": {s: {k: v for k, v in pick(r["device_host"]).items()
+                          if k in keys}
+                      | {"B": r["B"], "k": r["k"], "L": r["L"]}
+                      for s, r in shapes.items()}}
+    if "device_ops" in tp:  # D1 and D2 only
+        row["kernel_ms"] = tp["kernel_ms"]
+        row["old_ms"] = tp.get("old_ms")
+        row["kernels_a_call"] = {
+            s: pick(r["device_host"])["device_ops"]["kernels"]
+            for s, r in shapes.items()}
+    return row
 
 
-def print_kernels(launches, worst, shapes, dh_err, ring_err, ring_full, par,
-                  layouts):
+def print_kernels(launches, worst, shapes, dh_err, ring_err, ring_full,
+                  ring_peer, par, layouts):
     """The line before the last: every kernel with its main-path launches,
     its largest difference from its plain version, its times and its
     bound. B1 and B2 are timed at the throughput launch shape (B=4 blocks
-    of 16 MiB), each launch shape beside it. B3 at n=8 virtual ranks (no
-    one PyTorch call gathers n chunks into n outputs on one card; NCCL
-    needs a rank a card). B4 and B5 are one kernel
+    of 16 MiB), each launch shape beside it. B3 at n=8 virtual ranks; its
+    ``library_ms`` is NCCL's ``all_gather_into_tensor`` across the cards
+    of the peer full-width case, on the host clock with the peer ring's
+    time beside it (``peer_ms``), and null on one card (NCCL needs a rank
+    a card). B4 and B5 are one kernel
     (``pl_decode_layout.cu``): B4's row counts the layouts that
     ``tools/l10_attack.py`` defines (fused, nosym) and times fused, B5's
     the layouts the harness serves (flat, split, upack) and times split,
     each against its plain version on one 16 MiB block at L=10;
     ``layouts`` gives every layout's ms on all eight blocks at L=10. D1,
-    D2 and D3 (``tools.device_host``) are timed through their wrappers
-    (offsets and the zeroed buffer included) at the throughput launch
-    shape, the C++ call of the port's host library beside them. No PyTorch
+    D2 and D3 (``tools.device_host``) are timed through their wrappers at
+    the throughput launch shape, the C++ call of the port's host library
+    beside them; D1 and D2 also give their two kernels' device time
+    (``kernel_ms``, from the profiler), the first design's call
+    (``old_ms``, when ``build/parent`` holds it) and the kernels a call
+    issued. No PyTorch
     call computes B1, B2, B4, B5 or D1-D3."""
     lay_launches, lay_err, lay10, one10 = layouts
     lay_ms = {n: r["ms"] for n, r in lay10.items()}
@@ -1642,7 +1765,7 @@ def print_kernels(launches, worst, shapes, dh_err, ring_err, ring_full, par,
          "launches": par["ring"], "max_abs_err": ring_err,
          "ms": ring_full["ms"], "plain_ms": ring_full["plain_ms"],
          "bound_ms": ring_full["hbm_bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         **_ring_library(ring_peer)},
         {"name": "pl_decode_layout fused/nosym (B4)", "route": "cuda",
          "source": f"{src}/pl_decode_layout.cu",
          "replaces": "tools/l10_attack.py:94",
@@ -1689,15 +1812,17 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--multihost-worker"]:
         return multihost_worker(*map(int, sys.argv[2:5]))
+    if sys.argv[1:2] == ["--nccl-worker"]:
+        return nccl_worker(*map(int, sys.argv[2:7]))
     try:
         phase_env()
         gg = load_testdata()
         data = gg.gen_sequence(0.2, BENCH_SIZE, BENCH_SEED)
         launches, worst, shapes, dh_err = run_single(T, PL, gg, data)
         layouts = phase_layouts(data)
-        ring_err, ring_full, par = run_parallel(T, PL, R, data)
+        ring_err, ring_full, ring_peer, par = run_parallel(T, PL, R, data)
         print_kernels(launches, worst, shapes, dh_err, ring_err, ring_full,
-                      par, layouts)
+                      ring_peer, par, layouts)
     except Exception:  # report any failing phase, print no result
         traceback.print_exc()
         return 1

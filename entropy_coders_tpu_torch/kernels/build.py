@@ -65,10 +65,11 @@ _SIGNATURES = {
     "ect_ring_max_ctas": [_I],
     # dev, peer
     "ect_ring_enable_peer": [_I, _I],
-    # words, sizes, bit_off, out, n_out, B, W, k, pack, stream (repack.cu)
-    "ect_lane_merge": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
-    # packed, n_packed, sizes, bit_off, words, B, W, k, pack, stream
-    "ect_lane_split": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P],
+    # words, sizes, out, n_out, meta, B, W, k, pack, stream (repack.cu)
+    "ect_lane_merge": [_P, _P, _P, _LL, _P, _I, _I, _I, _I, _P],
+    # packed, n_packed, sizes, block_offs, goff, words, B, W, k, pack,
+    # stream
+    "ect_lane_split": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # norm, dec, next_state, tt_bits, tt_fs, B, L, stream (tables.cu)
     "ect_build_tables": [_P, _P, _P, _P, _P, _I, _I, _P],
 }

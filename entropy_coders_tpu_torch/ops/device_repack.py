@@ -3,24 +3,28 @@
 
 Counterpart of ``entropy_coders_tpu/ops/device_repack.py``, which keeps the
 repack as XLA code and records that its scatter was slower than the host's
-C++ on a TPU. That says nothing about an H100: here a warp turns a tile of
-32 lanes x 32 words through shared memory (``csrc/repack.cu``), and on a
-CUDA device the container repacks on the card (``frame``), so that the
-words never cross to the host.
+C++ on a TPU. That says nothing about an H100: here persistent warps turn
+tiles of 32 lanes x 32 words through shared memory (``csrc/repack.cu``),
+and on a CUDA device the container repacks on the card (``frame``), so
+that the words never cross to the host.
 
 Both wire forms are one function. Lane i of block b is a run of ``len``
 bits starting at bit ``bit_off[b, i]`` of a flat byte buffer: ``len =
 sizes[b, i]`` for bit-packed lanes (``FLAG_PACKED``), ``8 * ceil(sizes /
 8)`` for byte-aligned lanes (FORMAT.md). Bit j of the run is bit ``j & 31``
-of ``words[b, j >> 5, i]``. The offsets are a prefix sum of the lengths
-(``lane_offsets``, ``torch.cumsum`` in int64: a 512 MiB call passes 2^32
-bits).
+of ``words[b, j >> 5, i]``. The offsets are a prefix sum of the lengths,
+in int64 (a 512 MiB call passes 2^32 bits): ``lane_offsets`` takes it with
+``torch.cumsum`` for the CPU path and the tools; on the card the kernels
+take it themselves (``kernel_offsets_ref`` is their formulation in plain
+PyTorch).
 
 * ``lane_merge_device`` -> D1, ``ect_lane_merge``; ``lane_split_device`` ->
-  D2, ``ect_lane_split``. A wrapper launches its kernel for CUDA tensors
-  (and raises if it cannot) and runs the plain PyTorch version for CPU
-  tensors. ``MERGE_LAUNCHES``/``SPLIT_LAUNCHES`` count the launches. Their
-  bytes equal ``native.lane_merge_batch``/``lane_split_batch``.
+  D2, ``ect_lane_split``. A wrapper launches its kernels for CUDA tensors
+  (two launches, the offsets and the repack, into ``torch.empty`` outputs;
+  it raises if it cannot) and runs the plain PyTorch version for CPU
+  tensors. ``MERGE_LAUNCHES``/``SPLIT_LAUNCHES`` count the wrapper calls
+  that launch. Their bytes equal ``native.lane_merge_batch``/
+  ``lane_split_batch``.
 * ``lane_merge_ref``/``lane_split_ref`` are the plain versions, the JAX
   module's formulation batched over blocks: every lane word lands at bit
   offset ``bit_off + 32 * j`` of the stream through two scatter-adds on
@@ -56,6 +60,7 @@ __all__ = [
     "encode_lanes_merged",
     "lane_merge_device",
     "lane_merge_ref",
+    "kernel_offsets_ref",
     "lane_offsets",
     "lane_split_device",
     "lane_split_ref",
@@ -85,6 +90,31 @@ def lane_offsets(sizes: torch.Tensor, pack_bits: bool, block_offs=None):
     totals = (lens.sum(1) + 7) >> 3
     offs = torch.cat([totals.new_zeros(1), torch.cumsum(totals, 0)])
     return within + (offs[:-1] << 3)[:, None], offs
+
+
+def kernel_offsets_ref(sizes: torch.Tensor, pack_bits: bool, block_offs=None):
+    """The offsets as D1 and D2 take them on the card, in plain PyTorch:
+    (bit_off, offs) as ``lane_offsets`` gives them, then ``goff (B, k /
+    32)`` and ``nbytes (B,)``, the scan kernel's outputs. The scan kernel
+    sums each 32-lane group, scans the group sums within the block
+    (``goff``) and rounds the block's total up to bytes; a repack warp adds
+    a shuffle scan of its group's 32 lengths and the block's first byte
+    (``block_offs``, or the sum of ``nbytes`` before it, which the merge
+    writes out as ``offs``)."""
+    lens = _lens(sizes, pack_bits)
+    B, k = lens.shape
+    groups = lens.view(B, k // 32, 32)
+    gsum = groups.sum(2)
+    goff = torch.cumsum(gsum, 1) - gsum
+    nbytes = (gsum.sum(1) + 7) >> 3
+    in_group = torch.cumsum(groups, 2) - groups
+    if block_offs is None:
+        offs = torch.cat([nbytes.new_zeros(1), torch.cumsum(nbytes, 0)])
+        first = offs[:-1]
+    else:
+        offs, first = None, block_offs.to(torch.int64)
+    bit_off = (in_group + goff[:, :, None]).view(B, k) + (first << 3)[:, None]
+    return bit_off, offs, goff, nbytes
 
 
 def _masked_words(words: torch.Tensor, lens: torch.Tensor, W: int):
@@ -152,12 +182,11 @@ def split_bits_device(packed, sizes, *, W: int):
                           pack_bits=True)[0]
 
 
-def _check_lanes(words_shape, sizes, bit_off, dev):
+def _check_lanes(words_shape, sizes, dev):
     B, W, k = words_shape
-    if k % 128:
-        raise ValueError(f"k={k} must be a multiple of 128")
+    if k % 128 or k >= 1 << 16:
+        raise ValueError(f"k={k} must be a multiple of 128 below 65536")
     _check(sizes, "sizes", (B, k), torch.int32, dev)
-    _check(bit_off, "bit_off", (B, k), torch.int64, dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
 
@@ -166,40 +195,50 @@ def lane_merge_device(words, sizes, *, pack_bits: bool = False):
     """Merge B blocks' lane words into their wire payloads (D1's wrapper).
 
     words: (B, W, k) uint32 lane words, sizes: (B, k) int32 bits a lane
-    (at most 32 * W).
+    (at most 32 * W), k a multiple of 128 below 65536.
     Returns (flat uint8, offs (B + 1,) int64), both on the words' device:
     block b's payload is ``flat[offs[b]: offs[b + 1]]``, byte for byte what
     ``native.lane_merge_batch`` gives (byte-aligned lanes, or bit-packed
     with ``pack_bits``, each block from a byte boundary). ``flat`` is
     allocated at its bound, 4 * B * W * k bytes, so that no size has to
-    cross to the host first; the bytes past ``offs[B]`` are zero.
+    cross to the host first. Only ``flat[: offs[B]]`` is promised, and the
+    rest of its last 4-byte word, which is zero; the bytes after that are
+    whatever the allocation held.
 
-    CUDA tensors launch D1 (and raise if the launch fails); CPU tensors run
-    ``lane_merge_ref``."""
+    CUDA tensors launch D1 (two kernels: the offsets, then the merge; it
+    raises if a launch fails) into ``torch.empty`` outputs; CPU tensors run
+    ``lane_offsets`` and ``lane_merge_ref``."""
     global MERGE_LAUNCHES
     if words.dim() != 3:
         raise ValueError(f"words must be (B, W, k), got {tuple(words.shape)}")
     B, W, k = words.shape
     dev = words.device
     _check(words, "words", (B, W, k), torch.uint32, dev)
-    bit_off, offs = lane_offsets(sizes, pack_bits)
-    _check_lanes(words.shape, sizes, bit_off, dev)
+    _check_lanes(words.shape, sizes, dev)
     n_out = B * W * k
     if dev.type == "cpu":
+        bit_off, offs = lane_offsets(sizes, pack_bits)
         out = lane_merge_ref(words, sizes, bit_off, n_out,
                              pack_bits=pack_bits)
         return out.view(torch.uint8), offs
-    out = torch.zeros(n_out, dtype=torch.int32, device=dev)
-    if n_out:
-        from ..kernels.build import load
+    out = torch.empty(n_out, dtype=torch.int32, device=dev)
+    if not n_out:  # no lane words: every size is 0
+        return out.view(torch.uint8), torch.zeros(B + 1, dtype=torch.int64,
+                                                  device=dev)
+    # offs (B + 1), then the kernels' scratch: block bytes (B), group
+    # offsets (B, k / 32)
+    meta = torch.empty(2 * B + 1 + B * (k // 32), dtype=torch.int64,
+                       device=dev)
+    words, sizes = PL._aligned(words), PL._aligned(sizes)
+    from ..kernels.build import load
 
-        lib = load()
-        with torch.cuda.device(dev):
-            _launch(lib.ect_lane_merge, words.data_ptr(), sizes.data_ptr(),
-                    bit_off.data_ptr(), out.data_ptr(), n_out, B, W, k,
-                    int(pack_bits), torch.cuda.current_stream(dev).cuda_stream)
-        MERGE_LAUNCHES += 1
-    return out.view(torch.uint8), offs
+    lib = load()
+    with torch.cuda.device(dev):
+        _launch(lib.ect_lane_merge, words.data_ptr(), sizes.data_ptr(),
+                out.data_ptr(), n_out, meta.data_ptr(), B, W, k,
+                int(pack_bits), torch.cuda.current_stream(dev).cuda_stream)
+    MERGE_LAUNCHES += 1
+    return out.view(torch.uint8), meta[: B + 1]
 
 
 def lane_split_device(flat, block_offs, sizes, *, k: int, W: int,
@@ -207,7 +246,7 @@ def lane_split_device(flat, block_offs, sizes, *, k: int, W: int,
     """Split wire payloads into B blocks' lane words (D2's wrapper).
 
     flat: 1-D uint8 tensor that holds the payloads (a multiple of 4 bytes
-      long and 4-byte aligned, or it is copied into one that is);
+      long and 16-byte aligned, or it is copied into one that is);
     block_offs: (B,) int64 byte offset of each block's lane streams in it;
     sizes: (B, k) int32 bits a lane. The caller has checked that every
     block's streams lie inside ``flat`` (the container's framing checks);
@@ -215,8 +254,9 @@ def lane_split_device(flat, block_offs, sizes, *, k: int, W: int,
     Returns words (B, W, k) uint32, every row written, the rows and bits
     past a lane's stream zero: what ``native.lane_split_batch`` gives.
 
-    CUDA tensors launch D2 (and raise if the launch fails); CPU tensors run
-    ``lane_split_ref``."""
+    CUDA tensors launch D2 (two kernels: the offsets, then the split; it
+    raises if a launch fails) into a ``torch.empty`` output; CPU tensors
+    run ``lane_offsets`` and ``lane_split_ref``."""
     global SPLIT_LAUNCHES
     if flat.dim() != 1 or flat.dtype != torch.uint8:
         raise ValueError("flat must be a 1-D uint8 tensor")
@@ -224,27 +264,29 @@ def lane_split_device(flat, block_offs, sizes, *, k: int, W: int,
     B = sizes.shape[0]
     block_offs = torch.as_tensor(block_offs, dtype=torch.int64).to(dev)
     _check(block_offs, "block_offs", (B,), torch.int64, dev)
-    bit_off, _ = lane_offsets(sizes, pack_bits, block_offs)
-    _check_lanes((B, W, k), sizes, bit_off, dev)
-    if flat.numel() % 4 or flat.data_ptr() % 4 or not flat.is_contiguous():
+    _check_lanes((B, W, k), sizes, dev)
+    if flat.numel() % 4 or flat.data_ptr() % 16 or not flat.is_contiguous():
         padded = torch.zeros(-(-flat.numel() // 4) * 4, dtype=torch.uint8,
                              device=dev)
         padded[: flat.numel()] = flat
         flat = padded
     packed = flat.view(torch.int32).view(torch.uint32)
     if dev.type == "cpu":
+        bit_off, _ = lane_offsets(sizes, pack_bits, block_offs)
         return lane_split_ref(packed, sizes, bit_off, W=W,
                               pack_bits=pack_bits)
     words = torch.empty((B, W, k), dtype=torch.int32, device=dev).view(
         torch.uint32)
     if words.numel():
+        sizes = PL._aligned(sizes)
+        goff = torch.empty(B * (k // 32), dtype=torch.int64, device=dev)
         from ..kernels.build import load
 
         lib = load()
         with torch.cuda.device(dev):
             _launch(lib.ect_lane_split, packed.data_ptr(), packed.numel(),
-                    sizes.data_ptr(), bit_off.data_ptr(), words.data_ptr(),
-                    B, W, k, int(pack_bits),
+                    sizes.data_ptr(), block_offs.data_ptr(), goff.data_ptr(),
+                    words.data_ptr(), B, W, k, int(pack_bits),
                     torch.cuda.current_stream(dev).cuda_stream)
         SPLIT_LAUNCHES += 1
     return words

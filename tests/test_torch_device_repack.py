@@ -105,7 +105,9 @@ def _merge(words, sizes, pack):
                                       torch.from_numpy(sizes), pack_bits=pack)
     flat, offs = flat.numpy(), offs.numpy()
     assert offs.dtype == np.int64 and len(offs) == len(sizes) + 1
-    assert not flat[offs[-1]:].any()
+    # only the payloads are promised, with the dead bits of their last
+    # 4-byte word zero (the kernel leaves the rest of its bound unwritten)
+    assert not flat[offs[-1]: -(-offs[-1] // 4) * 4].any()
     return [flat[offs[b]: offs[b + 1]].tobytes() for b in range(len(sizes))]
 
 
@@ -159,6 +161,86 @@ def test_guard_bits_pinned():
     got = DR.lane_split_device(flat, torch.from_numpy(offs),
                                torch.from_numpy(sizes), k=128, W=W)
     assert (to_numpy(got) == native.lane_split_batch(ref, sizes, 128, W)).all()
+
+
+# --- the offsets as the kernels take them, in plain PyTorch --------------------------
+
+
+def _sizes_cases():
+    rng = np.random.default_rng(77)
+    yield "mixed", rng.integers(0, 3000, (3, 256)).astype(np.int32)
+    five = np.full((4, 128), 5, np.int32)  # 5-bit lanes (L=5)
+    five[1, ::3] = 0
+    yield "five_bit", five
+    edge = rng.integers(1, 2000, (2, 128)).astype(np.int32)
+    edge[0, :4] = [32, 1024, 1056, 0]  # a word, a 32-row tile, one past
+    edge[1] = 0  # a block without payload
+    yield "edges", edge
+    yield "default_launch", rng.integers(5, 1200, (512, 1024)).astype(np.int32)
+
+
+@pytest.mark.parametrize("pack", [False, True], ids=["bytes", "packed"])
+@pytest.mark.parametrize("name,sizes", list(_sizes_cases()),
+                         ids=[c[0] for c in _sizes_cases()])
+@pytest.mark.parametrize("framed", [False, True], ids=["merge", "split"])
+def test_kernel_offsets_model(pack, name, sizes, framed):
+    """The kernels' formulation of the offsets (group sums, their scan, a
+    shuffle scan within a group, block bytes) equals ``lane_offsets`` and
+    the C++ library's payload lengths, for both wire forms, laid end to end
+    (the merge) or at given block offsets (the split)."""
+    st = torch.from_numpy(sizes)
+    B, k = sizes.shape
+    boffs = None
+    if framed:
+        boffs = torch.from_numpy((np.arange(B) * 7919 + (1 << 33))
+                                 .astype(np.int64))
+    bit_off, offs, goff, nbytes = DR.kernel_offsets_ref(st, pack, boffs)
+    want_off, want_offs = DR.lane_offsets(st, pack, boffs)
+    assert bit_off.dtype == torch.int64 and torch.equal(bit_off, want_off)
+    assert goff.shape == (B, k // 32) and nbytes.shape == (B,)
+    lens = [len(p) for p in native.lane_merge_batch(
+        np.zeros((B, 1, k), np.uint32), sizes, pack)]
+    assert nbytes.tolist() == lens
+    assert torch.equal(goff, bit_off[:, ::32] - bit_off[:, :1])
+    if framed:
+        assert offs is None and want_offs is None
+        assert torch.equal(bit_off[:, 0], boffs << 3)
+    else:
+        assert torch.equal(offs, want_offs)
+        assert offs.tolist() == [0, *np.cumsum(lens).tolist()]
+
+
+@pytest.mark.parametrize("pack", [False, True], ids=["bytes", "packed"])
+@pytest.mark.parametrize("case", ["five_bit", "tile_edges", "default_launch"])
+def test_merge_split_edge_lanes_equal_native(pack, case):
+    """Cases the kernels' word ownership turns on: one wire word spanning
+    three or more lanes (5-bit lanes, some empty), lanes that end exactly
+    on a word and on a 32-row tile, a block without payload, and B=512
+    blocks at k=1024 (the default launch's shape)."""
+    if case == "five_bit":
+        words, sizes, W = rand_lanes(5, 128, 5, 6, B=4)
+        sizes[1, ::3] = 0
+        sizes[2, :10] = [0, 0, 0, 5, 0, 0, 1, 5, 0, 0]
+    elif case == "tile_edges":
+        words, sizes, W = rand_lanes(9, 128, 900, 1100, B=3)
+        sizes[0, :6] = [1024, 1056, 32, 1024, 64, 1023]
+        sizes[1] = 0
+    else:
+        words, sizes, W = rand_lanes(12, 1024, 5, 90, B=512)
+    rem = sizes[:, None, :] - 32 * np.arange(W)[None, :, None]
+    words &= np.where(rem >= 32, 0xFFFFFFFF,
+                      (1 << np.clip(rem, 0, 31)) - 1).astype(np.uint32)
+    ref = native.lane_merge_batch(words, sizes, pack)
+    assert _merge(words, sizes, pack) == ref
+    k = sizes.shape[1]
+    buf = b"\x00" * 3 + b"".join(ref) + b"\x01"
+    offs = 3 + np.concatenate([[0], np.cumsum([len(r) for r in ref])[:-1]])
+    got = DR.lane_split_device(DR.bytes_on(buf, 0, len(buf), "cpu"),
+                               torch.from_numpy(offs), torch.from_numpy(sizes),
+                               k=k, W=W + 1, pack_bits=pack)
+    assert (to_numpy(got) == native.lane_split_batch(ref, sizes, k, W + 1,
+                                                     pack)).all()
+    assert (to_numpy(got)[:, :W] == words).all()
 
 
 def test_offsets_are_64_bit():
@@ -384,3 +466,70 @@ def test_corrupt_inputs_on_device_route(fn, arg, device_route):
     else:
         fn(arg)
     assert device_route["merge"] > 0
+
+
+# --- what the card checks, on synthetic inputs ----------------------------------------
+
+
+@pytest.mark.parametrize("ops,ok", [
+    ({"scan_kernel(int)": {"calls": 1.0, "us": 3.0},
+      "merge_kernel(int)": {"calls": 1.0, "us": 30.0}}, True),
+    ({"merge_kernel(int)": {"calls": 1.0, "us": 30.0}}, True),
+    ({"scan_kernel(int)": {"calls": 2.0, "us": 3.0},
+      "merge_kernel(int)": {"calls": 1.0, "us": 30.0}}, False),
+    ({"Memset (Device)": {"calls": 1.0, "us": 20.0},
+      "merge_kernel(int)": {"calls": 1.0, "us": 30.0}}, False),
+    ({"void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor": {"calls": 1.0, "us": 20.0},
+      "merge_kernel(int)": {"calls": 1.0, "us": 30.0}}, False),
+    ({"Memcpy HtoD (Pageable -> Device)": {"calls": 1.0, "us": 2.0}}, False),
+], ids=["two_kernels", "one_kernel", "three_kernels", "memset", "fill",
+        "no_kernel"])
+def test_device_ops_rule(ops, ok):
+    """The rule chip_smoke.py holds a repack call's profiler window to: at
+    most two kernels, at least one, no memset and no fill; ``kernel_ms``
+    sums the kernels' device time and leaves the copies out."""
+    from entropy_coders_tpu_torch.tools import device_host as DH
+
+    if ok:
+        assert DH.check_ops(ops, "case")["kernels"] == sum(
+            o["calls"] for o in ops.values())
+        assert DH.kernel_ms(ops) == pytest.approx(
+            sum(o["us"] for o in ops.values()) / 1e3)
+        assert DH.kernel_ms(ops, "merge") == pytest.approx(0.030)
+    else:
+        with pytest.raises(AssertionError):
+            DH.check_ops(ops, "case")
+
+
+@pytest.mark.parametrize("count,us,calls,want", [
+    (20, 600.0, 10, {"calls": 2, "seen": 2.0, "us": 60.0}),
+    (18, 540.0, 10, {"calls": 2, "seen": 1.8, "us": 60.0}),
+    (7, 210.0, 10, {"calls": 1, "seen": 0.7, "us": 30.0}),
+    (1, 30.0, 10, {"calls": 1, "seen": 0.1, "us": 30.0}),
+], ids=["all_seen", "two_missed", "three_missed", "one_seen"])
+def test_op_row_is_unbiased_by_missed_events(count, us, calls, want):
+    """A profiler window that misses some of a kernel's events still gives
+    its launches a call and its device time a call."""
+    from entropy_coders_tpu_torch.tools import device_host as DH
+
+    got = DH.op_row(count, us, calls)
+    assert got["calls"] == want["calls"]
+    assert got["seen"] == pytest.approx(want["seen"])
+    assert got["us"] == pytest.approx(want["us"])
+
+
+def test_old_repack_interface_is_read_from_its_source():
+    """``device_host --old`` builds another commit's ``repack.cu``: the
+    first design's launchers take the lane offsets, the current ones the
+    outputs and scratch."""
+    from pathlib import Path
+
+    from entropy_coders_tpu_torch.tools import device_host as DH
+
+    first = ('extern "C" int ect_lane_merge(const void* words, const void* '
+             'sizes,\n    const void* bit_off, void* out, long long n_out, '
+             'int B,\n    int W, int k, int pack, void* stream) {\n')
+    assert DH.takes_bit_offsets(first)
+    src = (Path(DR.__file__).resolve().parent.parent / "csrc" /
+           "repack.cu").read_text()
+    assert not DH.takes_bit_offsets(src)
