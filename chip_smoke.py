@@ -64,16 +64,25 @@ most, and the host's wall time in each stage of ``frame.compress`` /
 and with the C++ repack. Then it
 drives the multi-device path (``entropy_coders_tpu_torch.parallel``):
 
-* ``ring``: the ring kernel (B3) against its plain version on virtual
-  ranks, a mesh that names ``cuda:0`` n times, for n in {2, 3, 8}: int32
-  and float32 chunks and the histogram all-reduce of the 128 MiB data's
-  counts, every rank's output and accumulator compared exactly; then
-  ``ring_all_gather`` at n = 8 of the throughput point's lane words, one
-  (264, 16384) u32 block per rank, timed against the plain version. Peer
-  ranks (distinct GPUs) run the same cases, and a timed full-width ring,
-  when the machine has two cards or more; then, as B3's yardstick, NCCL's
-  ``all_gather_into_tensor`` of the same per-rank chunk, one process a
-  card (this script run with ``--nccl-worker``), on the same host clock.
+* ``ring``: B3 against its plain version on virtual ranks, a mesh that
+  names ``cuda:0`` n times, for n in {2, 3, 8}: int32 chunks of 16-byte
+  vectors and of 4-byte words, float32 chunks and the histogram
+  all-reduce of the 128 MiB data's counts, every rank's output and
+  accumulator compared exactly; then ``ring_all_gather`` at n = 8 of the
+  throughput point's lane words, one (264, 16384) u32 block per rank,
+  checked and timed by CUDA events beside the plain version and the
+  bound, (n + n*n) * chunk over 3.35 TB/s; a ``torch.profiler`` window of
+  calls after the mesh's first shows B3's kernel only (no memset, fill or
+  set-up call) and its device time, and the host's part of a call (the
+  wrapper's and the launcher's time to return) is timed apart. With two cards or more it prints the
+  peer-access matrix and ``nvidia-smi topo -m``, runs the same cases on
+  peer ranks (distinct GPUs) at n = 2 and n = all cards, two full-width
+  calls on the mesh's cached state and one of another chunk size, and
+  times the full-width ring by each card's CUDA events (the slowest) and
+  the host clock beside its NVLink bound, (n-1) * chunk over 450 GB/s;
+  then, as B3's yardstick, NCCL's ``all_gather_into_tensor`` of the same
+  per-rank chunk, one process a card (this script run with
+  ``--nccl-worker``), by CUDA events and the host clock.
 * ``sharded``: the throughput point through ``parallel.compress`` /
   ``decompress`` on ``default_mesh()`` and on eight virtual ranks, and 5
   blocks over 8 ranks: each frame equals ``compress``'s, byte for byte,
@@ -124,6 +133,7 @@ MULTIHOST_LEGS = {"plain": {},
                   "shared": dict(shared_table=True, bit_pack=True,
                                  checksum=True)}
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's published peak
+NVLINK_BYTES_PER_S = 450e9  # one H100 SXM's NVLink, each way
 
 
 class SmokeFailure(Exception):
@@ -1084,6 +1094,9 @@ def phase_timing(data):
         emit(f"timing_shape_{name}", **row)
         del inp, got, want
     out["shapes"] = shapes
+    # D3 alone at the highest table log, on the throughput shape's blocks
+    out["tables_L15"] = DH.tables_high(data)
+    emit("timing_tables_L15", **out["tables_L15"])
     return out
 
 
@@ -1233,15 +1246,17 @@ def ring_case(shards, mesh, accumulate=False):
             total = want.to(torch.int64).sum(0)
             total = (((total + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(
                 torch.int32)
-            check(torch.equal(accs[d].to(mesh[0]), total),
+            check(torch.equal(_bits(accs[d]).to(mesh[0]), total),
                   f"rank {d} accumulator != the sum (n={len(mesh)})")
     check(err == 0, f"B3 != plain version (n={len(mesh)}): {err}")
     return err
 
 
 def ring_cases(mesh, rank_counts):
-    """The ring's three cases on one mesh: int32 (n*2, 4, 128), float32
-    (n, 8, 128) and the histogram all-reduce of ``rank_counts`` (n, 256)."""
+    """The ring's cases on one mesh, each on the mesh's one cached state:
+    int32 (n*2, 4, 128) gathered and summed, int32 (n*3, 5) (a 60-byte
+    chunk: B3's 4-byte path) gathered and summed, float32 (n, 8, 128), and
+    the histogram all-reduce of ``rank_counts`` (n, 256)."""
     import numpy as np
     import torch
 
@@ -1251,9 +1266,11 @@ def ring_cases(mesh, rank_counts):
     rng = np.random.default_rng(BENCH_SEED + n)
     x = torch.from_numpy(rng.integers(0, 1 << 30, (n * 2, 4, 128)).astype(
         np.int32))
+    w = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (n * 3, 5)).astype(
+        np.int32))
     f = torch.from_numpy(rng.standard_normal((n, 8, 128)).astype(np.float32))
     err = 0
-    for t, acc in ((x, False), (x, True), (f, False)):
+    for t, acc in ((x, False), (x, True), (w, False), (w, True), (f, False)):
         shards = [s.to(d).contiguous() for s, d in zip(t.tensor_split(n), mesh)]
         err = max(err, ring_case(shards, mesh, acc))
     check(torch.equal(R.ring_all_gather(x, mesh).cpu(), x),
@@ -1282,6 +1299,216 @@ def rank_counts(blocks_dev, n):
     return out
 
 
+def cards_ms(fn, devices, runs: int = 7, warmup: int = 2):
+    """Median over runs of the slowest card's device time of ``fn``: CUDA
+    events on each card's current stream before and after the call; also
+    every run's. A card's time starts at its own event, so it holds the
+    launches' skew and the wait for the other cards."""
+    import torch
+
+    devices = list(dict.fromkeys(devices))
+    for _ in range(warmup):
+        fn()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    times = []
+    for _ in range(runs):
+        starts, ends = [], []
+        for d in devices:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(d))
+            starts.append(ev)
+        fn()
+        for d in devices:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(d))
+            ends.append(ev)
+        for ev in ends:
+            ev.synchronize()
+        times.append(max(a.elapsed_time(b) for a, b in zip(starts, ends)))
+    return statistics.median(times), times
+
+
+# what no B3 call after a mesh's first may issue (runtime API names)
+RING_SET_UP_CALLS = ("cudaDeviceCanAccessPeer", "cudaDeviceEnablePeerAccess",
+                     "cudaOccupancyMaxActiveBlocksPerMultiprocessor",
+                     "cudaMemsetAsync", "cudaMemset", "cudaEventRecord",
+                     "cudaStreamWaitEvent")
+
+
+def ring_window(fn, devices, kernels_a_call: int, calls: int = 10,
+                tries: int = 3) -> dict:
+    """What ``calls`` calls of ``fn`` (after one outside the window) issue
+    under ``torch.profiler``: device ops by name and the runtime API calls
+    seen on the host. Fails on any device op other than B3's kernel (a
+    memset, a fill, a copy), on a set-up call (``RING_SET_UP_CALLS``), and
+    unless the host launched exactly ``kernels_a_call`` B3 kernels a call.
+    ``kernel_ms`` is the mean device time of a B3 kernel seen (on peer
+    ranks a card's kernel, its waits included); ``runtime_api_us_each``
+    the host's mean time in each runtime call.
+    A window can miss device events (PERF.md §7): fewer kernels seen than
+    launched is reported (``seen_a_call``), and a window that saw none is
+    taken again, up to ``tries`` windows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    devices = list(dict.fromkeys(devices))
+    fn()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            for d in devices:
+                torch.cuda.synchronize(d)
+        device_ops, api, api_us, ring_us = {}, {}, {}, 0.0
+        for e in prof.key_averages():
+            if not e.count:
+                continue
+            if e.device_type == DeviceType.CUDA:
+                device_ops[e.key[:80]] = e.count
+                if "ring_kernel" in e.key:
+                    ring_us += e.self_device_time_total
+            elif e.key.startswith("cuda"):
+                api[e.key] = e.count
+                api_us[e.key] = e.cpu_time_total / e.count
+        kernels = sum(c for k, c in device_ops.items() if "ring_kernel" in k)
+        if kernels:
+            break
+    other = {k: c for k, c in device_ops.items() if "ring_kernel" not in k}
+    check(not other, f"B3 calls issued other device ops: {other}")
+    # peer ranks launch cooperatively, virtual ranks plainly
+    launched = api.get("cudaLaunchCooperativeKernel" if len(devices) > 1
+                       else "cudaLaunchKernel", 0)
+    check(launched == kernels_a_call * calls,
+          f"B3 launched {launched} kernels for {calls} calls of "
+          f"{kernels_a_call}: {api}")
+    check(kernels <= launched, f"{kernels} B3 kernels seen, {launched} "
+          "launched")
+    set_up = {k: c for k, c in api.items() if k in RING_SET_UP_CALLS}
+    check(not set_up, f"B3 calls after the first made set-up calls: {set_up}")
+    return {"calls": calls, "kernels_a_call": kernels_a_call,
+            "seen_a_call": kernels / calls,
+            "kernel_ms": ring_us / kernels / 1e3 if kernels else None,
+            "device_ops": device_ops, "runtime_api": api,
+            "runtime_api_us_each": api_us}
+
+
+def ring_enqueue(shards, mesh, runs: int = 7) -> dict:
+    """The host's part of a B3 call, cards idle before each run (median ms
+    of ``runs``): the wrapper's time to return (checks, outputs, streams,
+    the launcher) and the launcher's alone (``_MeshState.launch`` on
+    outputs allocated once: the ctypes call and the n launches). The
+    launcher's launches bypass the wrapper, so ``RING_LAUNCHES`` does not
+    count them: call this only after the main path's counts are read."""
+    import ctypes
+
+    import torch
+
+    from entropy_coders_tpu_torch.kernels.build import load
+    from entropy_coders_tpu_torch.parallel import rdma as R
+
+    n = len(mesh)
+    lib = load()
+    state = R._STATES[mesh]
+    outs = [torch.empty((n,) + tuple(shards[0].shape), dtype=shards[0].dtype,
+                        device=d) for d in mesh]
+    ptrs = ctypes.c_void_p * n
+    ins = ptrs(*[t.data_ptr() for t in shards])
+    out_ptrs = ptrs(*[t.data_ptr() for t in outs])
+    streams = [s.cuda_stream for s in state.streams]
+    chunk = shards[0].numel() * shards[0].element_size()
+
+    def launcher():
+        state.launch(lib, ins, out_ptrs, ptrs(), chunk, streams)
+
+    out = {}
+    for name, fn in (("wrapper_ms", lambda: R._ring_call(shards, mesh)),
+                     ("launcher_ms", launcher)):
+        times = []
+        for _ in range(runs):
+            for d in dict.fromkeys(mesh):
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+        out[name + "_runs"] = times
+    for d in dict.fromkeys(mesh):
+        torch.cuda.synchronize(d)
+    return out
+
+
+def ring_full_width(shards, mesh):
+    """B3 at full width on ``mesh``, held against the plain version
+    (gather, and accumulate over the u32 words), then timed one call a run,
+    as its plain version is: on virtual ranks by CUDA events on the card
+    (``queued_ms`` beside: three calls queued a run, which hides the host's
+    enqueue); on peer ranks by each card's events around a call (the
+    slowest card) and on the host clock, every card synchronised. Beside
+    them: the
+    kernel alone (the profiler's ``window``) and the host's part of a call
+    (``ring_enqueue``). The bound is the function's bytes: virtual ranks
+    read each chunk once and write it n times, (n + n*n) * chunk over 3.35
+    TB/s; peer ranks send (n-1) * chunk each over NVLink at 450 GB/s."""
+    from entropy_coders_tpu_torch.parallel import rdma as R
+    from entropy_coders_tpu_torch.tools.bench_data import cuda_ms
+
+    n = len(mesh)
+    peer = len(set(mesh)) == n
+    chunk = shards[0].numel() * shards[0].element_size()
+    worst = max(ring_case(shards, mesh), ring_case(shards, mesh, True))
+
+    def call():
+        R._ring_call(shards, mesh)
+
+    out = {"n": n, "peer": peer, "chunk_shape": list(shards[0].shape),
+           "chunk_bytes": chunk}
+    if peer:
+        out["bound_ms"] = (n - 1) * chunk / NVLINK_BYTES_PER_S * 1e3
+        out["bound_by"] = "NVLink bytes"
+        out["clock"] = "the slowest card's CUDA events; host clock beside"
+        out["ms"], out["ms_runs"] = cards_ms(call, mesh)
+        out["host_ms"], out["host_ms_runs"] = host_ms(call, mesh)
+        out["plain_ms"], _ = host_ms(lambda: R._ring_call_ref(shards, mesh),
+                                     mesh)
+    else:
+        out["bound_ms"] = (n + n * n) * chunk / HBM_BYTES_PER_S * 1e3
+        out["bound_by"] = "bytes"
+        out["clock"] = "CUDA events, one call a run"
+        out["ms"], out["ms_runs"] = cuda_ms(call)
+        out["queued_ms"], out["queued_ms_runs"] = cuda_ms(call, reps=3)
+        out["plain_ms"], _ = cuda_ms(lambda: R._ring_call_ref(shards, mesh))
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["window"] = ring_window(call, mesh, n if peer else 1)
+    out["enqueue"] = ring_enqueue(shards, mesh)
+    out["max_abs_err"] = worst
+    return out
+
+
+def ring_topology(count: int) -> dict:
+    """The cards' peer-access matrix (``torch.cuda.can_device_access_peer``)
+    and ``nvidia-smi topo -m``, printed as they are: B3's peer design
+    assumes every card reaches every other (NVSwitch)."""
+    import torch
+
+    access = [[None if i == j else torch.cuda.can_device_access_peer(i, j)
+               for j in range(count)] for i in range(count)]
+    try:
+        r = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                           text=True, timeout=60)
+        topo = r.stdout if r.returncode == 0 else (
+            f"nvidia-smi topo -m failed ({r.returncode}): {r.stderr}")
+    except (OSError, subprocess.TimeoutExpired) as e:
+        topo = f"nvidia-smi topo -m failed: {e!r}"
+    print(topo, flush=True)
+    return {"peer_access": access, "all_pairs": all(
+        access[i][j] for i in range(count) for j in range(count) if i != j)}
+
+
 def phase_ring(data):
     import numpy as np
     import torch
@@ -1289,7 +1516,6 @@ def phase_ring(data):
     from entropy_coders_tpu_torch.normalize import normalize_batch
     from entropy_coders_tpu_torch.ops import pl_coder as PL
     from entropy_coders_tpu_torch.parallel import rdma as R
-    from entropy_coders_tpu_torch.tools.bench_data import cuda_ms
 
     dev = torch.device("cuda", 0)
     blocks_np = data.reshape(-1, BLOCK)
@@ -1314,42 +1540,34 @@ def phase_ring(data):
                                L=L, W=W)
     mesh = (dev,) * 8
     shards = list(words.unbind(0))
-    worst = max(worst, ring_case(shards, mesh))
     gathered = R.ring_all_gather(words, mesh)
     check(torch.equal(_bits(gathered), _bits(words)),
           "ring_all_gather of the lane words != the words")
-    ms, all_ms = cuda_ms(lambda: R._ring_call(shards, mesh))
-    plain_ms, plain_all = cuda_ms(lambda: R._ring_call_ref(shards, mesh))
-    chunk = shards[0].numel() * 4
-    moved = 2 * 8 * 8 * chunk  # seed + 7 hops, a read and a write each, x 8
-    full = {"n": 8, "chunk_shape": list(shards[0].shape),
-            "chunk_bytes": chunk, "bytes_moved": moved, "ms": ms,
-            "ms_runs": all_ms, "plain_ms": plain_ms, "plain_ms_runs": plain_all,
-            "GBps": moved / ms / 1e6, "plain_GBps": moved / plain_ms / 1e6,
-            "hbm_bound_ms": moved / HBM_BYTES_PER_S * 1e3,
-            "hbm_share": moved / HBM_BYTES_PER_S * 1e3 / ms}
+    full = ring_full_width(shards, mesh)
+    worst = max(worst, full["max_abs_err"])
 
     count = torch.cuda.device_count()
     if count >= 2:
-        peer = {}
+        peer = {"topology": ring_topology(count)}
         for n in sorted({2, min(count, 8)}):
             pmesh = tuple(torch.device("cuda", i) for i in range(n))
             err = ring_cases(pmesh, rank_counts(blocks, n))
             peer[f"peer_{n}"] = {"max_abs_err": err}
             worst = max(worst, err)
-        # full width on n distinct cards: each rank sends n-1 chunks over
-        # NVLink (450 GB/s each way); host clock, every card synchronised
+        # full width on n distinct cards: two calls on the mesh's cached
+        # state, then one with another chunk size (133 of the 264 rows)
         pshards = [shards[i].to(d) for i, d in enumerate(pmesh)]
-        worst = max(worst, ring_case(pshards, pmesh))
-        ms_p, runs_p = host_ms(lambda: R._ring_call(pshards, pmesh), pmesh)
-        plain_p, plain_runs_p = host_ms(
-            lambda: R._ring_call_ref(pshards, pmesh), pmesh)
-        peer["full_width"] = {
-            "n": n, "ms": ms_p, "ms_runs": runs_p, "plain_ms": plain_p,
-            "plain_ms_runs": plain_runs_p,
-            "nvlink_bound_ms": (n - 1) * chunk / 450e9 * 1e3,
-            "clock": "host, all cards synchronised",
-            "nccl_all_gather": phase_nccl(n, tuple(shards[0].shape))}
+        epoch = R._STATES[pmesh].epoch
+        for _ in range(2):
+            worst = max(worst, ring_case(pshards, pmesh))
+        worst = max(worst, ring_case(
+            [s[:133].contiguous() for s in pshards], pmesh))
+        check(R._STATES[pmesh].epoch == epoch + 3,
+              "the peer mesh's state was set up again")
+        peer["full_width"] = ring_full_width(pshards, pmesh)
+        peer["full_width"]["nccl_all_gather"] = phase_nccl(
+            n, tuple(shards[0].shape))
+        worst = max(worst, peer["full_width"]["max_abs_err"])
     else:
         peer = "not run: 1 device"
     emit("ring", cases=cases, full_width=full, peer=peer, max_abs_err=worst)
@@ -1358,17 +1576,21 @@ def phase_ring(data):
 
 def _ring_library(peer) -> dict:
     """B3's yardstick fields: NCCL's ``all_gather_into_tensor`` across the
-    cards of the peer full-width case, with the peer ring's time on the
-    same host clock beside it; null on one card, with the reason."""
+    cards of the peer full-width case (device events, the slowest rank),
+    with its host clock and the peer B3's device and host times and bound
+    beside it; null on one card, with the reason."""
     if not isinstance(peer, dict):
         return {"library_ms": None,
                 "library": "NCCL all_gather_into_tensor needs >= 2 cards; "
                            "this machine has 1"}
-    nccl = peer["full_width"]["nccl_all_gather"]
-    return {"library_ms": nccl["ms"],
+    fw = peer["full_width"]
+    nccl = fw["nccl_all_gather"]
+    return {"library_ms": nccl["device_ms"],
             "library": f"NCCL all_gather_into_tensor, {nccl['n']} cards, "
-                       "host clock",
-            "peer_ms": peer["full_width"]["ms"]}
+                       "the slowest rank's CUDA events",
+            "library_host_ms": nccl["ms"], "peer_n": fw["n"],
+            "peer_ms": fw["ms"], "peer_host_ms": fw["host_ms"],
+            "peer_bound_ms": fw["bound_ms"]}
 
 
 def phase_sharded(T, data, single_frame):
@@ -1440,8 +1662,9 @@ def phase_nccl(n: int, shape) -> dict:
     """B3's yardstick: ``torch.distributed.all_gather_into_tensor`` over
     NCCL, one process a card (this script with ``--nccl-worker``), each
     rank's chunk one ``shape`` u32 block, as in the peer full-width ring.
-    Returns rank 0's line: the median over runs of the slowest rank's host
-    time, each rank's card synchronised before and after."""
+    Returns rank 0's line: the medians over runs of the slowest rank's host
+    time and of its CUDA-event time around the call, each rank's card
+    synchronised before and after."""
     port = _free_port()
     procs = [subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--nccl-worker",
@@ -1495,24 +1718,33 @@ def nccl_worker(port: int, num: int, rank: int, rows: int, cols: int) -> int:
     check(all(torch.equal(out.view(num, rows, cols)[r].cpu(), chunk_of(r))
               for r in range(num)),
           f"nccl all_gather (rank {rank}) != every rank's chunk")
-    times = []
+    times, device = [], []
     for _ in range(7):
         dist.barrier(device_ids=[rank])
         torch.cuda.synchronize(dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        a.record()
         call()
+        b.record()
         torch.cuda.synchronize(dev)
         times.append((time.perf_counter() - t0) * 1e3)
-    slowest = torch.tensor(times, dtype=torch.float64, device=dev)
+        device.append(a.elapsed_time(b))
+    slowest = torch.tensor([times, device], dtype=torch.float64, device=dev)
     dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
-    slowest = slowest.tolist()
+    slowest, slowest_dev = slowest.tolist()
     if rank == 0:
         print(json.dumps({"n": num, "chunk_shape": [rows, cols],
                           "chunk_bytes": rows * cols * 4,
                           "ms": statistics.median(slowest),
                           "ms_runs": slowest,
-                          "clock": "host, the slowest rank's each run, "
-                                   "every card synchronised"}), flush=True)
+                          "device_ms": statistics.median(slowest_dev),
+                          "device_ms_runs": slowest_dev,
+                          "clock": "host (ms) and CUDA events around the "
+                                   "call on the rank's stream (device_ms), "
+                                   "the slowest rank's each run, every card "
+                                   "synchronised"}), flush=True)
     dist.destroy_process_group()
     return 0
 
@@ -1599,8 +1831,8 @@ def multihost_worker(port: int, num: int, rank: int) -> int:
 def run_single(T, PL, gg, data):
     """The single-device phases; returns the main path's launch counts,
     B1's and B2's largest difference from their plain versions, the
-    timings at the main path's launch shapes and D1-D3's largest
-    differences in phase ``device_host``."""
+    timings at the main path's launch shapes, D1-D3's largest differences
+    (phase ``device_host`` and the timings) and D3 at L = 15."""
     from entropy_coders_tpu_torch.ops import device_repack as DR
     from entropy_coders_tpu_torch.ops import tables as TB
 
@@ -1643,8 +1875,11 @@ def run_single(T, PL, gg, data):
 
     timing = phase_timing(data)
     worst = max([worst] + [timing[p][s]["max_abs_err"]
-                           for p in timing for s in timing[p]])
-    return launches, worst, timing["shapes"], dh_err
+                           for p in ("throughput", "parity", "shapes")
+                           for s in timing[p]])
+    dh_err["tables"] = max(dh_err["tables"],
+                           timing["tables_L15"]["max_abs_err"])
+    return launches, worst, timing["shapes"], dh_err, timing["tables_L15"]
 
 
 def run_parallel(T, PL, R, data):
@@ -1727,16 +1962,17 @@ def _device_host_row(name, src, replaces, launches, shapes, pick, checked):
     return row
 
 
-def print_kernels(launches, worst, shapes, dh_err, ring_err, ring_full,
-                  ring_peer, par, layouts):
+def print_kernels(launches, worst, shapes, dh_err, tables15, ring_err,
+                  ring_full, ring_peer, par, layouts):
     """The line before the last: every kernel with its main-path launches,
     its largest difference from its plain version, its times and its
     bound. B1 and B2 are timed at the throughput launch shape (B=4 blocks
-    of 16 MiB), each launch shape beside it. B3 at n=8 virtual ranks; its
-    ``library_ms`` is NCCL's ``all_gather_into_tensor`` across the cards
-    of the peer full-width case, on the host clock with the peer ring's
-    time beside it (``peer_ms``), and null on one card (NCCL needs a rank
-    a card). B4 and B5 are one kernel
+    of 16 MiB), each launch shape beside it. B3 at n=8 virtual ranks, its bound
+    the function's bytes, (n + n*n) * chunk; its ``library_ms`` is NCCL's
+    ``all_gather_into_tensor`` across the cards of the peer full-width
+    case, by the slowest rank's CUDA events, with its host clock and the
+    peer B3's device and host times and NVLink bound beside it, and null
+    on one card (NCCL needs a rank a card). B4 and B5 are one kernel
     (``pl_decode_layout.cu``): B4's row counts the layouts that
     ``tools/l10_attack.py`` defines (fused, nosym) and times fused, B5's
     the layouts the harness serves (flat, split, upack) and times split,
@@ -1764,7 +2000,9 @@ def print_kernels(launches, worst, shapes, dh_err, ring_err, ring_full,
          "replaces": "entropy_coders_tpu/parallel/rdma.py:46",
          "launches": par["ring"], "max_abs_err": ring_err,
          "ms": ring_full["ms"], "plain_ms": ring_full["plain_ms"],
-         "bound_ms": ring_full["hbm_bound_ms"], "bound_by": "bytes",
+         "bound_ms": ring_full["bound_ms"], "bound_by": "bytes",
+         "kernel_ms": ring_full["window"]["kernel_ms"],
+         "queued_ms": ring_full["queued_ms"],
          **_ring_library(ring_peer)},
         {"name": "pl_decode_layout fused/nosym (B4)", "route": "cuda",
          "source": f"{src}/pl_decode_layout.cu",
@@ -1789,7 +2027,10 @@ def print_kernels(launches, worst, shapes, dh_err, ring_err, ring_full,
         _device_host_row("build_tables (D3)", f"{src}/tables.cu",
                          "entropy_coders_tpu/ops/tables.py:44",
                          launches["tables"], shapes, lambda d: d["tables"],
-                         dh_err["tables"]),
+                         dh_err["tables"])
+        | {"L15": {k: tables15[k] for k in ("B", "L", "ms", "kernel_ms",
+                                            "plain_ms", "cpp_ms",
+                                            "bound_ms")}},
     ]}), flush=True)
 
 
@@ -1814,15 +2055,14 @@ def main() -> int:
         return multihost_worker(*map(int, sys.argv[2:5]))
     if sys.argv[1:2] == ["--nccl-worker"]:
         return nccl_worker(*map(int, sys.argv[2:7]))
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     try:
         phase_env()
         gg = load_testdata()
         data = gg.gen_sequence(0.2, BENCH_SIZE, BENCH_SEED)
-        launches, worst, shapes, dh_err = run_single(T, PL, gg, data)
-        layouts = phase_layouts(data)
-        ring_err, ring_full, ring_peer, par = run_parallel(T, PL, R, data)
-        print_kernels(launches, worst, shapes, dh_err, ring_err, ring_full,
-                      ring_peer, par, layouts)
+        run_all(T, PL, R, gg, data)
     except Exception:  # report any failing phase, print no result
         traceback.print_exc()
         return 1
@@ -1830,6 +2070,15 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def run_all(T, PL, R, gg, data):
+    """Every phase, then the kernels line."""
+    launches, worst, shapes, dh_err, tables15 = run_single(T, PL, gg, data)
+    layouts = phase_layouts(data)
+    ring_err, ring_full, ring_peer, par = run_parallel(T, PL, R, data)
+    print_kernels(launches, worst, shapes, dh_err, tables15, ring_err,
+                  ring_full, ring_peer, par, layouts)
 
 
 if __name__ == "__main__":

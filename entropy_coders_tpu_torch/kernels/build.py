@@ -59,10 +59,12 @@ _SIGNATURES = {
     # op, iters, host long long* -> cycles of a dependent chain (latency.cu)
     "ect_latency": [_I, _I, _P],
     # ins[n], outs[n], accs[n], flags[n] (host arrays of device pointers),
-    # n, chunk_bytes, m, rank_lo, n_launch, vec16, sys, stream
-    "ect_ring": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P],
-    # vec16 -> co-resident ring CTAs on the current device (or -error)
-    "ect_ring_max_ctas": [_I],
+    # order[n*n] (bytes), devs[n] (ints), streams[n], n, chunk_vecs,
+    # stripe_vecs, m, stride, epoch, variant, peer
+    "ect_ring": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _I,
+                 ctypes.c_ulonglong, _I, _I],
+    # dev, variant -> co-resident ring CTAs on device dev (or -error)
+    "ect_ring_max_ctas": [_I, _I],
     # dev, peer
     "ect_ring_enable_peer": [_I, _I],
     # words, sizes, out, n_out, meta, B, W, k, pack, stream (repack.cu)

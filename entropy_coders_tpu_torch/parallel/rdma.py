@@ -9,21 +9,24 @@ of devices, one per rank; a device may repeat. ``ring_all_gather`` and
   accumulate sums them);
 * ``ring_all_gather``: ordered gather of equal-size per-rank chunks.
 
-Ring schedule (unidirectional, n-1 hops), as in the JAX kernel: each rank
-first puts its own chunk into its slot of its (n,)+chunk output; at hop
-``s`` rank ``d`` forwards slot ``(d - s) mod n`` to rank ``d+1``, which
-stores it at the same slot, so every slot travels the ring in order.
+``_ring_call`` runs the collective on one chunk per rank and returns every
+rank's output and accumulator. One rank passes its chunk through, as the
+JAX functions do. For a mesh on the CPU it runs the plain PyTorch version,
+``_ring_call_ref``, which models the JAX kernel's ring hop by hop. For a
+CUDA mesh it launches B3 (``csrc/ring.cu``) or raises. B3 computes the same
+outputs on another schedule: each rank pushes its own chunk into its slot
+of every output in one pass, no hops:
 
-``_ring_call`` runs it on one chunk per rank and returns every rank's
-output and accumulator. One rank passes its chunk through, as the JAX
-functions do. For a mesh on the CPU it runs the plain PyTorch
-version, ``_ring_call_ref``: the same slot schedule hop by hop with torch
-copies. For a CUDA mesh it launches B3 (``csrc/ring.cu``) or raises:
+* virtual ranks, one device named n times: one launch, no flags;
+* peer ranks, n distinct GPUs of this process: one launch a device, the
+  CTAs handshaking through flag words on the cards.
 
-* virtual ranks, one device named n times: one cooperative launch;
-* peer ranks, n distinct GPUs of this process: one launch per device after
-  enabling peer access, each stream waiting until every rank's flags are
-  zeroed.
+The first CUDA call on a mesh sets up its ``_MeshState`` (kept in
+``_STATES``): peer access for every ordered pair of its cards, the CTAs a
+rank per kernel variant, the destination order, each card's flag words
+(zeroed once, never again) and the epoch counter. A later call allocates
+its outputs and makes one launcher call; it issues no memset, event,
+peer-access or occupancy call.
 
 ``RING_LAUNCHES`` counts kernel launches, so a run can show that its path
 went through the kernel.
@@ -46,10 +49,139 @@ RING_LAUNCHES = 0  # B3 launches since import (or since a caller reset it)
 
 _MAX_RANKS = 32  # kMaxRanks of csrc/ring.cu
 _THREADS = 256   # kThreads of csrc/ring.cu
+_UNROLL = 4      # kUnroll of csrc/ring.cu: vectors a thread loads at once
+# csrc/ring.cu's kernel variants: 4-byte words, 16-byte vectors
+WORDS, VECTORS = 0, 1
+_STATES: dict = {}  # mesh -> _MeshState
+_PEER_UNSUPPORTED = 217  # cudaErrorPeerAccessUnsupported
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _variant(chunk_bytes: int) -> int:
+    """The kernel variant for a chunk: vectors when it is a multiple of 16
+    bytes, else words."""
+    return WORDS if chunk_bytes % 16 else VECTORS
+
+
+def _stripes(vecs: int, ctas: int) -> tuple[int, int]:
+    """Split a chunk of ``vecs`` vectors over at most ``ctas`` CTAs a rank:
+    (m, per). CTA s takes vectors [s*per, min((s+1)*per, vecs)); every
+    stripe is non-empty and only the last may be short."""
+    per = _cdiv(vecs, max(1, min(ctas, vecs)))
+    return _cdiv(vecs, per), per
+
+
+def _ctas_per_rank(cap: int, ranks_per_launch: int, vecs: int,
+                   peer: bool) -> int:
+    """CTAs a rank: as many as can be resident beside the launch's other
+    ranks (at least one), but no more than give each thread ``_UNROLL``
+    vectors. Peer CTAs wait on CTAs of other cards, so every one must be
+    resident: on peer ranks this raises when no CTA fits. Virtual ranks
+    never wait and take a plain launch of any size."""
+    if peer and cap < 1:
+        raise RuntimeError("B3's peer CTAs must be co-resident, but no CTA "
+                           "fits on a card")
+    return max(1, min(cap // ranks_per_launch,
+                      _cdiv(vecs, _THREADS * _UNROLL)))
+
+
+def _push_order(n: int) -> list[list[int]]:
+    """Rank r's destinations in order: (r + i) % n at step i. Row r starts
+    at r (the own slot) and, at every step, the n ranks store to n distinct
+    cards, so every link carries one stream at once."""
+    return [[(r + i) % n for i in range(n)] for r in range(n)]
+
+
+def _peer_pairs(n: int) -> list[tuple[int, int]]:
+    """Every ordered pair (i, j), i != j, of n ranks: rank i stores into
+    rank j's output and flags."""
+    return [(i, j) for i in range(n) for j in range(n) if i != j]
+
+
+def _flag_words(device: torch.device, count: int) -> torch.Tensor:
+    """``count`` zeroed 64-bit flag words on ``device``, the zeroing done
+    when this returns: a peer's first kernel may raise a word before this
+    card's stream would have reached a queued memset."""
+    words = torch.zeros(count, dtype=torch.int64, device=device)
+    torch.cuda.synchronize(device)
+    return words
+
+
+class _MeshState:
+    """B3's per-mesh set-up, made at the first CUDA call on ``mesh``:
+
+    * peer ranks: peer access for every ordered pair of the mesh's cards
+      (raises with the pair's ranks and devices where the card refuses);
+    * the CTAs that can be resident on each card, per kernel variant (the
+      least over the cards);
+    * the destination order (``_push_order``);
+    * peer ranks: each card's (2, n, stride) flag words, zeroed here and
+      never again; stride is the most CTAs a rank can have, so every
+      (kind, source rank, stripe) has a word of its own whatever a call's m;
+    * the epoch, one more each call: the kernel raises flags to it and
+      waits until they hold at least it.
+
+    ``launch`` is then a call's only work besides its outputs."""
+
+    def __init__(self, lib, mesh):
+        n = len(mesh)
+        self.mesh = mesh
+        self.peer = len(set(mesh)) == n
+        if self.peer:
+            for i, j in _peer_pairs(n):
+                rc = lib.ect_ring_enable_peer(mesh[i].index, mesh[j].index)
+                if rc:
+                    why = ("the cards cannot reach each other"
+                           if rc == _PEER_UNSUPPORTED else f"CUDA error {rc}")
+                    raise RuntimeError(
+                        f"B3: rank {i} ({mesh[i]}) cannot store into rank "
+                        f"{j} ({mesh[j]}): {why}")
+        self.cap = {}
+        for variant in (WORDS, VECTORS):
+            caps = [lib.ect_ring_max_ctas(d.index, variant)
+                    for d in dict.fromkeys(mesh)]
+            if min(caps) < 0:
+                raise RuntimeError(f"ect_ring_max_ctas failed: CUDA error "
+                                   f"{-min(caps)}")
+            self.cap[variant] = min(caps)
+        self.stride = max(1, max(self.cap.values()))
+        order = _push_order(n)
+        self.order = (ctypes.c_byte * (n * n))(*sum(order, []))
+        self.devs = (ctypes.c_int * n)(*[d.index for d in mesh])
+        self.flags = ([_flag_words(d, 2 * n * self.stride) for d in mesh]
+                      if self.peer else None)
+        self.flag_ptrs = (ctypes.c_void_p * n)(
+            *([f.data_ptr() for f in self.flags] if self.peer else [None] * n))
+        self.epoch = 0
+        self.streams = None  # the streams of the last call
+
+    def launch(self, lib, ins, outs, accs, chunk_bytes: int,
+               streams) -> int:
+        """One call: ``ins``/``outs``/``accs`` ctypes arrays of n device
+        pointers, ``streams`` the stream handles to launch on (each rank's,
+        or the one device's on virtual ranks). Returns the kernels
+        launched."""
+        n = len(self.mesh)
+        variant = _variant(chunk_bytes)
+        vecs = chunk_bytes // (4 if variant == WORDS else 16)
+        m, per = _stripes(vecs, _ctas_per_rank(
+            self.cap[variant], 1 if self.peer else n, vecs, self.peer))
+        self.epoch += 1
+        _launch(lib.ect_ring, ins, outs, accs, self.flag_ptrs, self.order,
+                self.devs, (ctypes.c_void_p * n)(*streams), n, vecs, per, m,
+                self.stride, self.epoch, variant, int(self.peer))
+        return n if self.peer else 1
+
+
+def _mesh_state(lib, mesh) -> _MeshState:
+    """The mesh's state, set up at its first call."""
+    state = _STATES.get(mesh)
+    if state is None:
+        state = _STATES[mesh] = _MeshState(lib, mesh)
+    return state
 
 
 def _check_shards(shards, mesh) -> int:
@@ -80,8 +212,11 @@ def _wrap_i32(t: torch.Tensor) -> torch.Tensor:
 
 def _ring_call_ref(shards, mesh, accumulate=False):
     """Plain PyTorch version of B3 (same inputs and outputs as
-    ``_ring_call``): the kernel's slot schedule hop by hop, one torch copy
-    per rank and hop, the accumulate in int64 reduced modulo 2^32."""
+    ``_ring_call``): the JAX kernel's ring schedule hop by hop (at hop s
+    rank d forwards slot (d - s) mod n to rank d+1), one torch copy per rank
+    and hop, the accumulate in int64 reduced modulo 2^32. B3's schedule
+    differs (one pass, each rank pushing its chunk to every peer); its
+    results do not."""
     n = len(mesh)
     dtype = shards[0].dtype
     src = [signed_view(t) for t in shards]
@@ -129,78 +264,41 @@ def _ring_call(shards, mesh, accumulate=False):
         return [own.unsqueeze(0)], ([own.clone()] if accumulate else None)
     if mesh[0].type == "cpu":
         return _ring_call_ref(shards, mesh, accumulate)
-    if n > _MAX_RANKS:
-        raise ValueError(f"B3 takes at most {_MAX_RANKS} ranks, got {n}")
-    distinct = len(set(mesh))
-    if distinct not in (1, n):
-        raise ValueError(f"a CUDA mesh names one device {n} times or {n} "
-                         f"distinct devices, got {mesh}")
-    peer = distinct == n
     from ..kernels.build import load
 
+    if n > _MAX_RANKS:
+        raise ValueError(f"B3 takes at most {_MAX_RANKS} ranks, got {n}")
+    if len(set(mesh)) not in (1, n):
+        raise ValueError(f"a CUDA mesh names one device {n} times or {n} "
+                         f"distinct devices, got {mesh}")
     lib = load()
-    vec16 = int(chunk_bytes % 16 == 0)
+    state = _mesh_state(lib, mesh)
     # 16-byte aligned bases (torch's own allocations are)
     src = [signed_view(t).contiguous() for t in shards]
     src = [t if t.data_ptr() % 16 == 0 else t.clone() for t in src]
-
-    # every CTA of the ring must be resident at once: size the CTAs per rank
-    # from what fits, and raise before launching if one per rank does not
-    ranks_per_launch = 1 if peer else n
-    cap = None
-    for d in dict.fromkeys(mesh):
-        with torch.cuda.device(d):
-            c = lib.ect_ring_max_ctas(vec16)
-        if c < 0:
-            raise RuntimeError(f"ect_ring_max_ctas failed: CUDA error {-c}")
-        cap = c if cap is None else min(cap, c)
-    if cap < ranks_per_launch:
-        raise RuntimeError(f"B3 needs {ranks_per_launch} co-resident CTAs "
-                           f"but only {cap} fit on {mesh[0]}")
-    vecs = chunk_bytes // (16 if vec16 else 4)
-    m = max(1, min(cap // ranks_per_launch, _cdiv(vecs, _THREADS)))
-
     shape = tuple(src[0].shape)
     outs = [torch.empty((n,) + shape, dtype=src[0].dtype, device=d)
             for d in mesh]
     accs = ([torch.empty(shape, dtype=torch.int32, device=d) for d in mesh]
             if accumulate else None)
-    if peer:
-        for r, d in enumerate(mesh):
-            _launch(lib.ect_ring_enable_peer, d.index, mesh[(r + 1) % n].index)
-        # fresh zeroed flags on each device's own stream; every launching
-        # stream waits until all of them (and all earlier work that used the
-        # recycled memory) are done, so no flag write lands before a memset
-        flags, zeroed = [], []
-        for d in mesh:
-            with torch.cuda.device(d):
-                flags.append(torch.zeros((n - 1) * m, dtype=torch.int32,
-                                         device=d))
-                ev = torch.cuda.Event()
-                ev.record(torch.cuda.current_stream(d))
-                zeroed.append(ev)
-        for d in mesh:
-            for ev in zeroed:
-                torch.cuda.current_stream(d).wait_event(ev)
-    else:
-        flags = list(torch.zeros((n, (n - 1) * m), dtype=torch.int32,
-                                 device=mesh[0]))
-
+    # each rank's kernels run on one stream, in call order: the epochs rely
+    # on it, so a stream other than the last call's first waits for that one
+    streams = [torch.cuda.current_stream(d)
+               for d in (mesh if state.peer else mesh[:1])]
+    if state.streams is not None and streams != state.streams:
+        for new, old in zip(streams, state.streams):
+            if new != old:
+                new.wait_stream(old)
+    state.streams = streams
     ptrs = ctypes.c_void_p * n
-    args = (ptrs(*[t.data_ptr() for t in src]),
-            ptrs(*[t.data_ptr() for t in outs]),
-            ptrs(*([t.data_ptr() for t in accs] if accumulate else [None] * n)),
-            ptrs(*[t.data_ptr() for t in flags]),
-            n, chunk_bytes, m)
-    launches = ([(r, 1, d) for r, d in enumerate(mesh)] if peer
-                else [(0, n, mesh[0])])
-    for rank_lo, n_launch, d in launches:
-        with torch.cuda.device(d):
-            _launch(lib.ect_ring, *args, rank_lo, n_launch, vec16, int(peer),
-                    torch.cuda.current_stream(d).cuda_stream)
-        RING_LAUNCHES += 1
-    outs = [o.view(dtype) for o in outs]
-    if accumulate:
+    RING_LAUNCHES += state.launch(
+        lib, ptrs(*[t.data_ptr() for t in src]),
+        ptrs(*[t.data_ptr() for t in outs]),
+        ptrs(*([t.data_ptr() for t in accs] if accumulate else [None] * n)),
+        chunk_bytes, [s.cuda_stream for s in streams])
+    if dtype != src[0].dtype:
+        outs = [o.view(dtype) for o in outs]
+    if accumulate and dtype != torch.int32:
         accs = [a.view(dtype) for a in accs]
     return outs, accs
 

@@ -11,8 +11,10 @@ prints one JSON line per check and per launch shape. ``chip_smoke.py``
 drives the same functions in its phase ``device_host``. At each shape a
 wrapper call of D1 and of D2 also runs once under ``torch.profiler``; the
 device ops it issued are listed and must be at most two kernels and no
-memset or fill. ``--old DIR`` names a checkout of another commit (e.g.
-``git archive <commit> | tar -x -C build/parent``): its
+memset or fill; so does one D3 call, which must be one kernel
+(``kernel_ms`` beside the wrapper's ``ms``, at each shape and at L = 15
+on the throughput shape's blocks). ``--old DIR`` names a checkout of
+another commit (e.g. ``git archive <commit> | tar -x -C build/parent``): its
 ``entropy_coders_tpu_torch/csrc/repack.cu`` is built into a library of its
 own, and its merge and split, with what their wrapper did around them, are
 timed against the current wrappers in turns (old, new, new, old;
@@ -542,35 +544,56 @@ def shape_repack(inp: LS.ShapeInputs, pack_bits: bool, old=None,
 
 
 def shape_tables(inp: LS.ShapeInputs) -> dict:
-    """D3 at one launch shape, on the normalized counts of the shape's
-    blocks: equal to the C++ build and to its plain version
-    (``max_abs_err``: the largest difference measured), and its time beside
-    the plain version's, the C++ builds' and the bound."""
-    B, L = inp.B, inp.L
-    n = inp.blocks.shape[1]
-    nt, logs = normalize_batch(histogram_blocks(inp.blocks).cpu().numpy(),
-                               n, L)
-    require((logs == L).all(), f"{inp.name}: table log raised above {L}")
+    """D3 at one launch shape (``tables_row`` on the shape's blocks)."""
+    return tables_row(inp.name, inp.blocks, inp.L)
+
+
+def tables_row(name: str, blocks: torch.Tensor, L: int) -> dict:
+    """D3 on the normalized counts of ``blocks`` (B, block bytes) on the
+    card at table log ``L``: equal to the C++ build and to its plain
+    version (``max_abs_err``: the largest difference measured); its time
+    through the wrapper beside the plain version's, the C++ builds' and
+    the bound; and the kernel alone, the profiler's device time of one
+    call (``kernel_ms``; ``device_ops``: one kernel, no memset or fill)."""
+    B, n = blocks.shape
+    nt, logs = normalize_batch(histogram_blocks(blocks).cpu().numpy(), n, L)
+    require((logs == L).all(), f"{name}: table log raised above {L}")
     nt = TB.check_norm_tables(nt, L)
-    norm = to_device(nt, inp.blocks.device)
+    norm = to_device(nt, blocks.device)
     table, tt_bits, tt_fs = native.build_encode_tables(nt, L)
     want = (native.build_decode_tables(nt, L), tt_bits, tt_fs, table)
     held = Held()
     for g, p, w in zip(TB.build_tables(norm, L),
                        TB.build_tables_ref(norm, L), want):
-        held(_diff_host(g, w), f"{inp.name}: D3 != the C++ tables")
-        held(_diff(g, p), f"{inp.name}: D3 != plain version")
+        held(_diff_host(g, w), f"{name}: D3 != the C++ tables")
+        held(_diff(g, p), f"{name}: D3 != plain version")
 
     def cpp():
         native.build_encode_tables(nt, L)
         native.build_decode_tables(nt, L)
 
-    row = _in_turns(lambda: TB.build_tables(norm, L), cpp)
+    def call():
+        TB.build_tables(norm, L)
+
+    row = _in_turns(call, cpp)
     row["plain_ms"] = cuda_ms(lambda: TB.build_tables_ref(norm, L), runs=2,
                               warmup=1)[0]
+    ops = device_ops(call)
+    row["device_ops"] = check_ops(ops, f"{name} tables")
+    require(row["device_ops"]["kernels"] == 1,
+            f"{name}: D3 issued {row['device_ops']['kernels']} kernels a call")
+    row["kernel_ms"] = kernel_ms(ops)
     row.update(_bound(B * (1024 + 6 * (1 << L) + 2048)),
                max_abs_err=held.worst)
     return {"B": B, "L": L, **row}
+
+
+def tables_high(data: np.ndarray, device="cuda") -> dict:
+    """D3 at L = 15 on the throughput launch's blocks (B = 4 of 16 MiB)."""
+    s = LS.SHAPES["throughput"]
+    blocks = np.resize(data, s["B"] * s["block"]).reshape(s["B"], s["block"])
+    return tables_row("throughput_L15", torch.from_numpy(blocks).to(device),
+                      15)
 
 
 def main(argv=None) -> int:
@@ -593,6 +616,8 @@ def main(argv=None) -> int:
             inp, name == "parity", old, args.rounds),
             "tables": shape_tables(inp)}), flush=True)
         del inp
+    print(json.dumps({"shape": "throughput_L15", "tables": tables_high(data)}),
+          flush=True)
     return 0
 
 

@@ -2,14 +2,20 @@
 // sources use, so that a kernel body compiles with g++ (-std=c++20) and runs
 // on the host: one std::thread per CUDA thread, a 32-thread std::barrier per
 // warp for the shuffles and __syncwarp, a barrier per block for
-// __syncthreads, `__shared__` variables as statics (the blocks of a grid run
-// one after the other). Shuffles exchange through a 32-slot array per warp:
-// write, wait, read, wait. Used by tests/test_torch_repack_emulated.py.
+// __syncthreads (each thread holds its block's), `__shared__` variables as
+// statics (so blocks that use them run one after the other). Shuffles
+// exchange through a 32-slot array per warp: write, wait, read, wait. Fences
+// are sequentially consistent fences, __nanosleep a yield, and __trap throws
+// EmuTrap, which the launcher catches. Used by
+// tests/test_torch_repack_emulated.py (repack_main.cpp) and
+// tests/test_torch_ring_emulated.py (ring_main.cpp).
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstdint>
 #include <cstring>
+#include <thread>
 #define __global__
 #define __device__
 #define __host__
@@ -27,6 +33,12 @@ inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return {a, b, c, d};
 }
 template <class T> T __ldg(const T* p) { return *p; }
+template <class T> T __ldcg(const T* p) { return *p; }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline void __threadfence_system() { __threadfence(); }
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+struct EmuTrap {};
+[[noreturn]] inline void __trap() { throw EmuTrap{}; }
 inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned shift) {
   const uint64_t v = (uint64_t)hi << 32 | lo;
   return (uint32_t)(v >> (shift & 31));
@@ -42,7 +54,7 @@ struct EmuWarp {
   uint64_t slot[32];
 };
 extern thread_local EmuWarp* emu_warp;
-extern std::barrier<>* emu_block_bar;
+extern thread_local std::barrier<>* emu_block_bar;
 extern unsigned char* emu_dyn_smem;  // the block's dynamic shared memory
 inline void __syncwarp(unsigned = 0xFFFFFFFFu) { emu_warp->bar.arrive_and_wait(); }
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }

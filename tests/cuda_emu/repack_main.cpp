@@ -11,7 +11,7 @@
 thread_local D3 threadIdx, blockIdx;
 D3 gridDim, blockDim;
 thread_local EmuWarp* emu_warp;
-std::barrier<>* emu_block_bar;
+thread_local std::barrier<>* emu_block_bar;
 unsigned char* emu_dyn_smem;
 
 #include "repack_kernels.cu"
@@ -27,12 +27,12 @@ void run_grid(unsigned grid, unsigned threads, size_t smem, F body) {
     std::vector<std::unique_ptr<EmuWarp>> warps;
     for (unsigned w = 0; w < threads / 32; w++) warps.emplace_back(new EmuWarp);
     std::barrier<> block_bar(threads);
-    emu_block_bar = &block_bar;
     std::vector<std::thread> ts;
     for (unsigned t = 0; t < threads; t++)
       ts.emplace_back([&, t, b] {
         threadIdx.x = t;
         blockIdx.x = b;
+        emu_block_bar = &block_bar;
         emu_warp = warps[t / 32].get();
         body();  // no kernel leaves a warp before a warp-wide operation
       });
