@@ -12,8 +12,12 @@ Phase ``device_host`` holds the lane repack (D1 ``ect_lane_merge``, D2
 ``ect_lane_split``) and the table build (D3 ``ect_build_tables``) against
 their plain versions and the port's C++ host library, exactly
 (``tools.device_host``: both wire forms, k in {128, 1024, 8192, 16384},
-zero-size and one-byte lanes, sizes on a word boundary, guard bits, L =
-5..15, tables with -1 counts, 512 tables, equal rows). Phase ``routes``
+zero-size and one-byte lanes, sizes on a word boundary, guard bits; D3 in
+each half at L = 5..15 and every cluster size its wrapper can pick there,
+tables with -1 counts, 512 tables, equal rows). The main path's D3
+launches are checked exactly: one a lane group a direction, 2 / 2 / 3 a
+round trip at the throughput / parity / default points and 27 with the
+goldens. Phase ``routes``
 runs the throughput, parity and default points with the repack on the card
 and in C++ and with the tables built on the card and on the host, in turns,
 wall times side by side, every frame's bytes and each route's launch counts
@@ -27,12 +31,17 @@ the kernels' SASS counts them, the larger), the chain under the card's
 measured instruction latencies, and the share of the bound; D1-D3 are
 timed at the same shapes on B2's real output (split of merge is the
 identity) beside their byte bounds, their plain versions and the C++ calls
-in turns. A wrapper call of D1 and of D2 at each shape runs once under
-``torch.profiler``: it must issue at most two kernels and no memset or
-fill. When ``build/parent`` holds a checkout of an earlier commit whose
-``repack.cu`` has the first design's launchers (``git archive <commit> |
-tar -x -C build/parent``), D1 and D2 of that design are timed in turns
-with the current ones (``old_ms``); without it ``old_ms`` is null.
+in turns; D3 at one chunk's and one lane group's launch shapes and at L =
+15, each half on its own, beside the floor of an empty kernel launched the
+same way (``tools.device_host.TABLE_SHAPES``). A wrapper call of D1 and of
+D2 at each shape runs once under ``torch.profiler``: it must issue at most
+two kernels and no memset or fill. When ``build/parent`` holds a checkout
+of an earlier commit (``git archive <commit> | tar -x -C build/parent``),
+D1-D3 of that commit are timed in turns with the current ones through
+what their wrappers did (``old_ms``), and B1 at each launch shape and B1
+and every layout at L=10 through one call path for both commits, outputs
+equal, with B1's SASS compared instruction by instruction; without it
+``old_ms`` is null.
 Phase ``layouts`` drives the decode table-layout tools
 (``entropy_coders_tpu_torch.tools``, kernels B4/B5): ``l10_attack.run`` at
 L=10 on the 128 MiB data and ``upack_hilog.run`` at L=11 and 13 (64 MiB,
@@ -394,8 +403,22 @@ def roundtrip(T, data, **kw):
     return frame, times
 
 
+# D3 launches a 128 MiB round trip: one a lane group a direction (the
+# default point's uniform block is a table-log group of its own on compress,
+# then stored RAW); with the five golden frames' 13, the main path's 27
+D3_LAUNCHES = {"throughput": 2, "parity": 2, "default": 3}
+D3_MAIN_PATH = 13 + 2 * sum(D3_LAUNCHES.values())
+
+
+def check_d3_launches(name, launches):
+    check(launches["tables"] == D3_LAUNCHES[name],
+          f"{name}: {launches['tables']} D3 launches a round trip, "
+          f"expected {D3_LAUNCHES[name]} (one a lane group a direction)")
+
+
 def phase_point(T, name, data, expect_bytes, **kw):
     frame, times = roundtrip(T, data, **kw)
+    check_d3_launches(name, times["launches"])
     check(len(frame) == expect_bytes,
           f"{name}: frame is {len(frame)} bytes, expected {expect_bytes}")
     ratio = len(frame) / len(data)
@@ -430,6 +453,7 @@ def phase_default(T, data):
 
     bs = TF.DEFAULT_BLOCK_SIZE
     frame, times = roundtrip(T, data)
+    check_d3_launches("default", times["launches"])
     pf = TF._parse_frame(frame)
     modes = {name: int((pf.modes == m).sum()) for name, m in
              (("fse_pl", TF.MODE_FSE_PL), ("fse", TF.MODE_FSE),
@@ -1049,10 +1073,10 @@ def phase_timing(data):
 
     text, lat = sass_and_latencies()
     clocks = LS.card_clocks()
-    parent = ROOT / "build" / "parent"
-    old_repack = (DH.load_old(parent) if (
-        parent / "entropy_coders_tpu_torch" / "csrc" / "repack.cu").exists()
-        else None)
+    old_repack, old_kernels = parent_kernels()
+    if old_kernels is not None:
+        out["b1_sass_diff"] = LS.b1_sass_diff(LS.sass(old_kernels.path), text)
+        emit("b1_sass", parent=out["b1_sass_diff"])
     shapes = {}
     for name in LS.SHAPES:
         inp = LS.shape_inputs(name, data)
@@ -1084,20 +1108,56 @@ def phase_timing(data):
             if name == "throughput":  # the comparison above warmed it up
                 row[kind]["plain_ms"] = cuda_ms(plain[kind], runs=2,
                                                 warmup=0)[0]
+        if old_kernels is not None:  # B1 in turns with the parent's
+            row["decode"].update(kernels_in_turns(
+                lambda lib: DH.decode_with(lib, inp.words, inp.sizes,
+                                           inp.tabs.dec, L, R),
+                f"{name} launch B1"))
         row["clocks"] = {"before": clocks, "after": LS.card_clocks()}
-        # D1-D3 on this shape's tensors: the wire form the point uses
+        # D1 and D2 on this shape's tensors: the wire form the point uses
         row["device_host"] = {
             "repack": DH.shape_repack(inp, pack_bits=name == "parity",
-                                      old=old_repack),
-            "tables": DH.shape_tables(inp)}
+                                      old=old_repack)}
         shapes[name] = row
         emit(f"timing_shape_{name}", **row)
         del inp, got, want
     out["shapes"] = shapes
-    # D3 alone at the highest table log, on the throughput shape's blocks
-    out["tables_L15"] = DH.tables_high(data)
-    emit("timing_tables_L15", **out["tables_L15"])
+    # D3 at one chunk's and one lane group's launch shapes, and at L = 15
+    out["tables"] = DH.tables_shapes(data, old_kernels)
+    for name, row in out["tables"].items():
+        emit(f"timing_tables_{name}", **row)
     return out
+
+
+def kernels_in_turns(call, what: str, rounds: int = 2) -> dict:
+    """``call(lib)`` of the parent's library and of this commit's, in turns
+    (``device_host.old_in_turns``: old, new, new, old), the same host work
+    around either; their outputs must be equal."""
+    import torch
+
+    from entropy_coders_tpu_torch.tools import device_host as DH
+
+    old, new = parent_kernels()[1], DH.current_kernels()
+    check(all(torch.equal(a, b) for a, b in zip(call(old), call(new))),
+          f"{what}: the parent's kernel differs")
+    return DH.old_in_turns(lambda: call(old), lambda: call(new), rounds)
+
+
+_PARENT = {}
+
+
+def parent_kernels():
+    """(the parent's repack library, its D3/B1/layout library) when
+    ``build/parent`` holds a checkout of a parent commit, else (None,
+    None); built once a run."""
+    from entropy_coders_tpu_torch.tools import device_host as DH
+
+    parent = ROOT / "build" / "parent"
+    if "libs" not in _PARENT:
+        csrc = parent / "entropy_coders_tpu_torch" / "csrc"
+        _PARENT["libs"] = ((DH.load_old(parent), DH.load_parent(parent))
+                           if (csrc / "tables.cu").exists() else (None, None))
+    return _PARENT["libs"]
 
 
 # --- the decode table-layout tools (B4/B5) ------------------------------------
@@ -1161,9 +1221,10 @@ def phase_layouts(data):
     64 MiB 40-symbol corpus and at L=13 on 128 MiB of it (their path: the
     counts start at 0 just before and are read just after), then every
     instantiation against its plain version (``layout_vs_plain``) and the
-    flat table's co-resident CTAs per SM at L = 10..15. Returns (launches
-    per layout, largest difference, the L=10 results, the one-block times
-    at L=10)."""
+    flat table's co-resident CTAs per SM at L = 10..15, and the flat
+    instantiation's SASS against B1's. Returns (launches per layout,
+    largest difference, the L=10 results, the one-block times at L=10,
+    the eight blocks in turns with the parent's kernel or None)."""
     import torch
 
     from entropy_coders_tpu_torch.tools import l10_attack as LA
@@ -1190,27 +1251,55 @@ def phase_layouts(data):
 
     inp10 = LA.lane_inputs(data, 10)
     worst, one10 = layout_vs_plain(inp10, full=True)
-    # the work of one block's decode at L=10, whatever the table's layout,
-    # as B1's instructions count it
+    turns = layouts_in_turns(inp10)
+    # the work of one block's decode at L=10 and of all eight, whatever the
+    # table's layout, as B1's instructions count it
     k10 = inp10.sizes.shape[1]
-    bound10 = LS.bound(
-        "decode", B=1, k=k10, L=10, R=inp10.R,
-        W=inp10.words.shape[1], sizes=inp10.sizes[:1],
-        stats=LS.kernel_stats("decode", k10, 10, *sass_and_latencies()),
-        sm_max_mhz=LS.card_clocks()["sm_max_mhz"],
-        n_sm=torch.cuda.get_device_properties(0).multi_processor_count)
-    for name in one10:
-        one10[name].update(bound_ms=bound10["bound_ms"],
-                           bound_by=bound10["bound_by"])
+    for rows, B in ((one10, 1), (turns or {}, inp10.sizes.shape[0])):
+        b = LS.bound(
+            "decode", B=B, k=k10, L=10, R=inp10.R,
+            W=inp10.words.shape[1], sizes=inp10.sizes[:B],
+            stats=LS.kernel_stats("decode", k10, 10, *sass_and_latencies()),
+            sm_max_mhz=LS.card_clocks()["sm_max_mhz"],
+            n_sm=torch.cuda.get_device_properties(0).multi_processor_count)
+        for row in rows.values():
+            row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
     del inp10
     for L in (11, 13):
         err, _ = layout_vs_plain(LA.lane_inputs(UH.corpus(64 * MIB), L))
         worst = max(worst, err)
     flat_ctas = {L: H.layout_occupancy("flat", L) for L in range(10, 16)}
-    emit("layouts", points=points, one_block_L10=one10,
-         flat_ctas_per_sm=flat_ctas, launches=launches, max_abs_err=worst,
+    # the layout kernel's flat instantiation against B1, in this build
+    text = sass_and_latencies()[0]
+    flat_sass = LS.sass_diff(text, LS.B1_SASS, text, LS.FLAT_LAYOUT_SASS)
+    emit("layouts", points=points, one_block_L10=one10, in_turns=turns,
+         flat_ctas_per_sm=flat_ctas, flat_sass_vs_b1=flat_sass,
+         launches=launches, max_abs_err=worst,
          seconds=time.perf_counter() - t0)
-    return launches, worst, points["L10_bench"], one10
+    return launches, worst, points["L10_bench"], one10, turns
+
+
+def layouts_in_turns(inp, rounds: int = 2):
+    """With ``build/parent``: B1 and each layout that applies on all of
+    ``inp``'s blocks (eight of 16 MiB at L=10), the parent's kernel and
+    this commit's called the same way in turns (``kernels_in_turns``),
+    outputs equal. Else None."""
+    from entropy_coders_tpu_torch.tools import device_host as DH
+    from entropy_coders_tpu_torch.tools import l10_attack_harness as H
+
+    if parent_kernels()[1] is None:
+        return None
+    L, R, w, s = inp.L, inp.R, inp.words, inp.sizes
+    out = {"B1": kernels_in_turns(
+        lambda lib: DH.decode_with(lib, w, s, inp.dec, L, R), "L=10 B1",
+        rounds)}
+    for name in H.LAYOUTS:
+        if H.layout_applies(name, inp.norm_tables, L):
+            t = H.layout_tables(inp.dec, L, name)
+            out[name] = kernels_in_turns(
+                lambda lib, t=t, n=name: DH.layout_with(lib, w, s, t, n, L, R),
+                f"L=10 {name}", rounds)
+    return out
 
 
 # --- the multi-device path ----------------------------------------------------
@@ -1832,7 +1921,8 @@ def run_single(T, PL, gg, data):
     """The single-device phases; returns the main path's launch counts,
     B1's and B2's largest difference from their plain versions, the
     timings at the main path's launch shapes, D1-D3's largest differences
-    (phase ``device_host`` and the timings) and D3 at L = 15."""
+    (phase ``device_host`` and the timings) and D3's timings
+    (``device_host.TABLE_SHAPES``)."""
     from entropy_coders_tpu_torch.ops import device_repack as DR
     from entropy_coders_tpu_torch.ops import tables as TB
 
@@ -1862,6 +1952,9 @@ def run_single(T, PL, gg, data):
     launches = _launch_counts_all()
     check(min(launches.values()) > 0,
           f"a kernel of the main path never launched: {launches}")
+    check(launches["tables"] == D3_MAIN_PATH,
+          f"{launches['tables']} D3 launches on the main path, expected "
+          f"{D3_MAIN_PATH}")
     emit("launches", **launches)
     phase_routes(T, PL, {"throughput": (data, tp_knobs, tp_frame),
                          "parity": (data, par_knobs, par_frame),
@@ -1877,9 +1970,10 @@ def run_single(T, PL, gg, data):
     worst = max([worst] + [timing[p][s]["max_abs_err"]
                            for p in ("throughput", "parity", "shapes")
                            for s in timing[p]])
-    dh_err["tables"] = max(dh_err["tables"],
-                           timing["tables_L15"]["max_abs_err"])
-    return launches, worst, timing["shapes"], dh_err, timing["tables_L15"]
+    dh_err["tables"] = max([dh_err["tables"]]
+                           + [r["max_abs_err"]
+                              for r in timing["tables"].values()])
+    return launches, worst, timing, dh_err
 
 
 def run_parallel(T, PL, R, data):
@@ -1932,10 +2026,10 @@ def _lane_row(name, kind, src, replaces, launches, worst, shapes):
 
 
 def _device_host_row(name, src, replaces, launches, shapes, pick, checked):
-    """D1, D2 or D3 in the kernels line: its wrapper's time at the
-    throughput launch shape beside the bare kernel's, the plain version's,
-    the bound and the C++ call's host time; every launch shape beside it.
-    ``pick`` takes a shape's ``device_host`` entry to the kernel's.
+    """D1 or D2 in the kernels line: its wrapper's time at the throughput
+    launch shape beside the bare kernel's, the plain version's, the bound
+    and the C++ call's host time; every launch shape beside it. ``pick``
+    takes a shape's ``device_host`` entry to the kernel's.
     ``max_abs_err`` is the largest difference measured between the kernel
     and its plain version or the C++ library, over phase ``device_host``'s
     cases (``checked``) and every launch shape."""
@@ -1944,54 +2038,105 @@ def _device_host_row(name, src, replaces, launches, shapes, pick, checked):
                            for r in shapes.values()])
     keys = ("ms", "kernel_ms", "launcher_ms", "old_ms", "old_kernel_ms",
             "old_device_ms", "plain_ms", "cpp_ms", "bound_ms", "bytes")
-    row = {"name": name, "route": "cuda", "source": src,
-           "replaces": replaces, "launches": launches, "max_abs_err": err,
-           "ms": tp["ms"], "plain_ms": tp["plain_ms"],
-           "bound_ms": tp["bound_ms"], "bound_by": tp["bound_by"],
-           "library_ms": None, "cpp_host_ms": tp["cpp_ms"],
-           "shapes": {s: {k: v for k, v in pick(r["device_host"]).items()
-                          if k in keys}
-                      | {"B": r["B"], "k": r["k"], "L": r["L"]}
-                      for s, r in shapes.items()}}
-    if "device_ops" in tp:  # D1 and D2 only
-        row["kernel_ms"] = tp["kernel_ms"]
-        row["old_ms"] = tp.get("old_ms")
-        row["kernels_a_call"] = {
-            s: pick(r["device_host"])["device_ops"]["kernels"]
-            for s, r in shapes.items()}
-    return row
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": tp["ms"], "plain_ms": tp["plain_ms"],
+            "bound_ms": tp["bound_ms"], "bound_by": tp["bound_by"],
+            "library_ms": None, "cpp_host_ms": tp["cpp_ms"],
+            "kernel_ms": tp["kernel_ms"], "old_ms": tp.get("old_ms"),
+            "kernels_a_call": {
+                s: pick(r["device_host"])["device_ops"]["kernels"]
+                for s, r in shapes.items()},
+            "shapes": {s: {k: v for k, v in pick(r["device_host"]).items()
+                           if k in keys}
+                       | {"B": r["B"], "k": r["k"], "L": r["L"]}
+                       for s, r in shapes.items()}}
 
 
-def print_kernels(launches, worst, shapes, dh_err, tables15, ring_err,
-                  ring_full, ring_peer, par, layouts):
+def _tables_row(src, launches, tables, checked):
+    """D3 in the kernels line: the decode half at one lane group's launch
+    shape of the throughput point (8 blocks at L = 8, what the main path
+    launches): a wrapper call beside the kernel alone, the empty launch's
+    floor, the plain version, the byte bound and the C++ build; both
+    halves at every ``device_host.TABLE_SHAPES`` shape beside it, with the
+    parent's call of both halves in turns (``old_ms``) when ``build/parent``
+    holds it."""
+    keys = ("ms", "host_ms", "kernel_ms", "empty_ms", "empty_kernel_ms",
+            "plain_ms", "cpp_ms", "bound_ms", "share_of_bound",
+            "share_of_empty")
+    top = tables["group_throughput"]["decode"]
+    return {"name": "build_tables (D3)", "route": "cuda", "source": src,
+            "replaces": "entropy_coders_tpu/ops/tables.py:44",
+            "launches": launches,
+            "max_abs_err": max([checked] + [r["max_abs_err"]
+                                            for r in tables.values()]),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "cpp_host_ms": top["cpp_ms"],
+            "kernel_ms": top["kernel_ms"], "empty_ms": top["empty_ms"],
+            "empty_kernel_ms": top["empty_kernel_ms"],
+            "old_ms": tables["group_throughput"].get("both", {}).get(
+                "old_ms"),
+            "shapes": {s: {"B": r["B"], "L": r["L"], "cluster": r["cluster"],
+                           "threads": r["threads"],
+                           **{h: {k: r[h][k] for k in keys}
+                              for h in ("decode", "encode")},
+                           "both": {k: v for k, v in r.get("both", {}).items()
+                                    if not k.endswith("turns")}}
+                       for s, r in tables.items()}}
+
+
+def _layout_row(name, replaces, src, launches, err, one10, lay10, turns,
+                timed):
+    """B4 or B5 in the kernels line: layout ``timed`` against its plain
+    version on one 16 MiB block at L=10; every layout's ms on all eight
+    blocks (``layouts``) and, with ``build/parent``, in turns with the
+    parent's kernel (``old_ms``)."""
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            **one10[timed], "library_ms": None,
+            "old_ms": (turns or {}).get(timed, {}).get("old_ms"),
+            "layouts": {n: r["ms"] for n, r in lay10.items()},
+            "layouts_in_turns": {n: {k: v for k, v in r.items()
+                                     if not k.endswith("turns")}
+                                 for n, r in (turns or {}).items()}}
+
+
+def print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,
+                  ring_peer, par, layouts):
     """The line before the last: every kernel with its main-path launches,
     its largest difference from its plain version, its times and its
     bound. B1 and B2 are timed at the throughput launch shape (B=4 blocks
-    of 16 MiB), each launch shape beside it. B3 at n=8 virtual ranks, its bound
-    the function's bytes, (n + n*n) * chunk; its ``library_ms`` is NCCL's
-    ``all_gather_into_tensor`` across the cards of the peer full-width
-    case, by the slowest rank's CUDA events, with its host clock and the
-    peer B3's device and host times and NVLink bound beside it, and null
-    on one card (NCCL needs a rank a card). B4 and B5 are one kernel
-    (``pl_decode_layout.cu``): B4's row counts the layouts that
+    of 16 MiB), each launch shape beside it, B1 also in turns with the
+    parent's (``old_ms``, with ``build/parent``). B3 at n=8 virtual ranks,
+    its bound the function's bytes, (n + n*n) * chunk; its ``library_ms``
+    is NCCL's ``all_gather_into_tensor`` across the cards of the peer
+    full-width case, by the slowest rank's CUDA events, with its host clock
+    and the peer B3's device and host times and NVLink bound beside it,
+    and null on one card (NCCL needs a rank a card). B4 and B5 are one
+    kernel (``pl_decode_layout.cu``, B1's own through
+    ``lane_decode.cuh``): B4's row counts the layouts that
     ``tools/l10_attack.py`` defines (fused, nosym) and times fused, B5's
     the layouts the harness serves (flat, split, upack) and times split,
     each against its plain version on one 16 MiB block at L=10;
-    ``layouts`` gives every layout's ms on all eight blocks at L=10. D1,
-    D2 and D3 (``tools.device_host``) are timed through their wrappers at
-    the throughput launch shape, the C++ call of the port's host library
-    beside them; D1 and D2 also give their two kernels' device time
-    (``kernel_ms``, from the profiler), the first design's call
-    (``old_ms``, when ``build/parent`` holds it) and the kernels a call
-    issued. No PyTorch
-    call computes B1, B2, B4, B5 or D1-D3."""
-    lay_launches, lay_err, lay10, one10 = layouts
-    lay_ms = {n: r["ms"] for n, r in lay10.items()}
+    ``layouts`` gives every layout's ms on all eight blocks at L=10. D1
+    and D2 (``tools.device_host``) are timed through their wrappers at the
+    throughput launch shape, the C++ call of the port's host library
+    beside them, their two kernels' device time (``kernel_ms``, from the
+    profiler), the first design's call (``old_ms``, when ``build/parent``
+    holds it) and the kernels a call issued. D3 is timed at a lane group's
+    launch shape (``_tables_row``). No PyTorch call computes B1, B2, B4,
+    B5 or D1-D3."""
+    lay_launches, lay_err, lay10, one10, turns = layouts
+    shapes = timing["shapes"]
     src = "entropy_coders_tpu_torch/csrc"
+    b1 = _lane_row("pl_decode (B1)", "decode", f"{src}/pl_decode.cu",
+                   "entropy_coders_tpu/ops/pl_coder.py:285",
+                   launches["decode"], worst, shapes)
+    b1["old_ms"] = shapes["throughput"]["decode"].get("old_ms")
+    b1["sass_vs_parent"] = timing.get("b1_sass_diff")
     print(json.dumps({"kernels": [
-        _lane_row("pl_decode (B1)", "decode", f"{src}/pl_decode.cu",
-                  "entropy_coders_tpu/ops/pl_coder.py:285",
-                  launches["decode"], worst, shapes),
+        b1,
         _lane_row("pl_encode (B2)", "encode", f"{src}/pl_encode.cu",
                   "entropy_coders_tpu/ops/pl_coder.py:1075",
                   launches["encode"], worst, shapes),
@@ -2004,18 +2149,15 @@ def print_kernels(launches, worst, shapes, dh_err, tables15, ring_err,
          "kernel_ms": ring_full["window"]["kernel_ms"],
          "queued_ms": ring_full["queued_ms"],
          **_ring_library(ring_peer)},
-        {"name": "pl_decode_layout fused/nosym (B4)", "route": "cuda",
-         "source": f"{src}/pl_decode_layout.cu",
-         "replaces": "tools/l10_attack.py:94",
-         "launches": lay_launches["fused"] + lay_launches["nosym"],
-         "max_abs_err": lay_err, **one10["fused"], "library_ms": None,
-         "layouts": lay_ms},
-        {"name": "pl_decode_layout flat/split/upack (B5)", "route": "cuda",
-         "source": f"{src}/pl_decode_layout.cu",
-         "replaces": "tools/l10_attack_harness.py:24",
-         "launches": sum(lay_launches[n] for n in ("flat", "split", "upack")),
-         "max_abs_err": lay_err, **one10["split"], "library_ms": None,
-         "layouts": lay_ms},
+        _layout_row("pl_decode_layout fused/nosym (B4)",
+                    "tools/l10_attack.py:94", f"{src}/pl_decode_layout.cu",
+                    lay_launches["fused"] + lay_launches["nosym"], lay_err,
+                    one10, lay10, turns, "fused"),
+        _layout_row("pl_decode_layout flat/split/upack (B5)",
+                    "tools/l10_attack_harness.py:24",
+                    f"{src}/pl_decode_layout.cu",
+                    sum(lay_launches[n] for n in ("flat", "split", "upack")),
+                    lay_err, one10, lay10, turns, "split"),
         _device_host_row("lane_merge (D1)", f"{src}/repack.cu",
                          "entropy_coders_tpu/ops/device_repack.py:56",
                          launches["merge"], shapes,
@@ -2024,13 +2166,8 @@ def print_kernels(launches, worst, shapes, dh_err, tables15, ring_err,
                          "entropy_coders_tpu/ops/device_repack.py:79",
                          launches["split"], shapes,
                          lambda d: d["repack"]["split"], dh_err["repack"]),
-        _device_host_row("build_tables (D3)", f"{src}/tables.cu",
-                         "entropy_coders_tpu/ops/tables.py:44",
-                         launches["tables"], shapes, lambda d: d["tables"],
-                         dh_err["tables"])
-        | {"L15": {k: tables15[k] for k in ("B", "L", "ms", "kernel_ms",
-                                            "plain_ms", "cpp_ms",
-                                            "bound_ms")}},
+        _tables_row(f"{src}/tables.cu", launches["tables"], timing["tables"],
+                    dh_err["tables"]),
     ]}), flush=True)
 
 
@@ -2074,11 +2211,11 @@ def main() -> int:
 
 def run_all(T, PL, R, gg, data):
     """Every phase, then the kernels line."""
-    launches, worst, shapes, dh_err, tables15 = run_single(T, PL, gg, data)
+    launches, worst, timing, dh_err = run_single(T, PL, gg, data)
     layouts = phase_layouts(data)
     ring_err, ring_full, ring_peer, par = run_parallel(T, PL, R, data)
-    print_kernels(launches, worst, shapes, dh_err, tables15, ring_err,
-                  ring_full, ring_peer, par, layouts)
+    print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,
+                  ring_peer, par, layouts)
 
 
 if __name__ == "__main__":

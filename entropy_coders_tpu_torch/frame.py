@@ -379,10 +379,13 @@ def _frame_header(total_len, k, block_size, n_blocks, shared,
 def _encode_group_pl(blocks_dev, norm_tables, l2, k, shared_table, sections,
                      modes, block_ids, bit_pack=False):
     """Per-lane-stream (MODE_FSE_PL) encode of equal-size blocks sharing one
-    table log, from the device-resident (B, n) uint8 ``blocks_dev``: B2 on
-    CUDA, its plain version on CPU, ~64 MiB of raw bytes per call; then the
-    lane merge (D1 on the card behind B2, or the C++ merge on the host:
-    ``_DEVICE_REPACK``) and section assembly on the host."""
+    table log, from the device-resident (B, n) uint8 ``blocks_dev``: the
+    group's encode tables built once (D3 on CUDA), then B2 on CUDA, its
+    plain version on CPU, ~64 MiB of raw bytes per call, each call on its
+    rows of the tables; then the lane merge (D1 on the card behind B2, or
+    the C++ merge on the host: ``_DEVICE_REPACK``) and section assembly on
+    the host. The tables, 2^(L+1) + 2 KiB a block, stay until the group's
+    last chunk is collected."""
     B, n = blocks_dev.shape
     R = n // k - 1
     W = PL.encode_w_bound(R, int(l2))
@@ -391,14 +394,15 @@ def _encode_group_pl(blocks_dev, norm_tables, l2, k, shared_table, sections,
 
     def launch(j0):
         rows = slice(j0, j0 + chunk)
+        own = PL.table_rows(tables, j0, j0 + chunk)
         if on_device:
             # the merge is queued behind B2 on the card; only the payload
             # bytes and the sizes come back
             return DR.encode_lanes_merged(
                 blocks_dev[rows], norm_tables[rows], k=k, L=int(l2), W=W,
-                pack_bits=bit_pack)
+                pack_bits=bit_pack, tables=own)
         return PL.encode_lanes_norm(blocks_dev[rows], norm_tables[rows], k=k,
-                                    L=int(l2), W=W, lazy=True)
+                                    L=int(l2), W=W, lazy=True, tables=own)
 
     # every chunk's kernels are dispatched before the first is drained
     # (entropy_coders_tpu/frame.py:477-488): the host's merge (on its
@@ -406,6 +410,8 @@ def _encode_group_pl(blocks_dev, norm_tables, l2, k, shared_table, sections,
     # the chunks after it
     chunk = max(1, _cdiv(_CHUNK_RAW, n))
     with _stage("ect.compress.dispatch"):
+        tables = PL.tables_from_norm(norm_tables, int(l2), blocks_dev.device,
+                                     half="encode")
         handles = [(j0, launch(j0)) for j0 in range(0, B, chunk)]
     for j0, collect in handles:
         with _stage("ect.compress.collect"):
@@ -745,7 +751,8 @@ def _decode_group_pl(items, raw_len, log2, pf, out, out_base, dev,
     the payload's offset in the frame). With ``span`` (a uint8 tensor on
     ``dev`` holding the frame from byte ``span[1]`` on, past every item's
     payload) the split runs on the device (D2) from those bytes; without
-    it the C++ split runs on the host and the words are copied."""
+    it the C++ split runs on the host and the words are copied. The
+    group's decode tables are built once, before the first chunk."""
     k = pf.k
     if not (TABLE_LOG_MIN <= log2 <= TABLE_LOG_MAX):
         raise ValueError(f"corrupt frame: table log {log2} out of range")
@@ -807,6 +814,9 @@ def _decode_group_pl(items, raw_len, log2, pf, out, out_base, dev,
     chunk = max(1, _cdiv(_CHUNK_RAW, raw_len))
     handles = []
     with _stage("ect.decompress.dispatch"):
+        # the group's decode tables, built once (D3 on CUDA), 2^L * 4 bytes
+        # a block until the last chunk is collected; each call reads its rows
+        tables = PL.tables_from_norm(norm_tables, log2, dev, half="decode")
         for j0 in range(0, B, chunk):
             sizes_dev = to_device(sizes[j0: j0 + chunk], dev, non_blocking=True)
             if span is not None:
@@ -824,7 +834,7 @@ def _decode_group_pl(items, raw_len, log2, pf, out, out_base, dev,
                 words = to_device(words, dev, non_blocking=True)
             handles.append((j0, PL.decode_lanes_norm(
                 words, sizes_dev, norm_tables[j0: j0 + chunk], k=k, L=log2, R=R,
-                lazy=True)))
+                lazy=True, tables=PL.table_rows(tables, j0, j0 + chunk))))
     for j0, collect in handles:
         with _stage("ect.decompress.collect"):
             syms, finals = collect()

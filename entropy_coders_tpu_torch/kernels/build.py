@@ -47,11 +47,12 @@ _SIGNATURES = {
     "ect_pl_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P],
     # words, sizes, plane0, plane1, syms, finals, cursors, B, W, k, L, R,
-    # layout, stream
+    # layout, T, RF, stream
     "ect_pl_decode_layout": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _P],
-    # layout, L -> co-resident CTAs per SM on the current device (or -error)
-    "ect_pl_decode_layout_occupancy": [_I, _I],
+                             _I, _I, _I, _P],
+    # layout, L, T, RF -> co-resident CTAs per SM on the current device (or
+    # -error)
+    "ect_pl_decode_layout_occupancy": [_I, _I, _I, _I],
     # blocks, tt_bits, tt_fs, next_state, words, sizes, B, k, L, R, W, T, F,
     # stream
     "ect_pl_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -72,8 +73,10 @@ _SIGNATURES = {
     # packed, n_packed, sizes, block_offs, goff, words, B, W, k, pack,
     # stream
     "ect_lane_split": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # norm, dec, next_state, tt_bits, tt_fs, B, L, stream (tables.cu)
-    "ect_build_tables": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # norm, dec, next_state, tt_bits, tt_fs, B, L, half, cluster, threads,
+    # stream (tables.cu; the same for the empty launch of that shape)
+    "ect_build_tables": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ect_build_tables_empty": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -100,17 +103,13 @@ def library_path() -> Path:
     return build_dir() / f"libect_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless their library exists; return its path."""
-    out = library_path()
-    if out.exists():
-        return out
-    writable_build_dir()
+def compile_library(srcs, out: Path) -> str:
+    """Compile ``srcs`` (one nvcc a source, all started together) and link
+    them into the shared library ``out`` (written atomically); returns the
+    compiler's report. Raises with nvcc's output when a step fails."""
     nvcc = _nvcc()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    srcs = sorted(CSRC.glob("*.cu"))
-    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
-    t0 = time.perf_counter()
+    objs = [tmp.with_name(f"{tmp.name}.{Path(src).stem}.o") for src in srcs]
     procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True)
@@ -118,9 +117,9 @@ def build() -> Path:
     logs, failed = [], []
     for src, p in zip(srcs, procs):
         _, err = p.communicate()
-        logs.append(f"== {src.name}\n{err}")
+        logs.append(f"== {Path(src).name}\n{err}")
         if p.returncode != 0:
-            failed.append(f"{src.name} ({p.returncode})")
+            failed.append(f"{Path(src).name} ({p.returncode})")
     try:
         if failed:
             raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
@@ -134,8 +133,19 @@ def build() -> Path:
         for obj in objs:
             obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return "\n".join(logs)
+
+
+def build() -> Path:
+    """Compile the sources unless their library exists; return its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    writable_build_dir()
+    t0 = time.perf_counter()
+    log = compile_library(sorted(CSRC.glob("*.cu")), out)
     last_build["seconds"] = time.perf_counter() - t0
-    last_build["log"] = "\n".join(logs)
+    last_build["log"] = log
     return out
 
 

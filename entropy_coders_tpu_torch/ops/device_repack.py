@@ -309,10 +309,11 @@ def bytes_on(buffer, lo: int, hi: int, device) -> torch.Tensor:
 
 
 def encode_lanes_merged(blocks, norm_tables, *, k: int, L: int, W: int,
-                        pack_bits: bool = False):
+                        pack_bits: bool = False, tables=None):
     """B2 and, behind it on the same stream, the merge: raw blocks (B, n)
-    uint8 and their (B, 256) normalized histograms -> the blocks' wire
-    payloads, without the lane words leaving the device.
+    uint8 and their (B, 256) normalized histograms (or ``tables``, their
+    encode half already built: ``pl_coder.encode_lanes_norm``'s) -> the
+    blocks' wire payloads, without the lane words leaving the device.
 
     Returns a zero-argument ``collect`` (as ``encode_lanes_norm(lazy=True)``
     does): it waits for the d2h of the sizes and the block offsets, queued
@@ -322,7 +323,8 @@ def encode_lanes_merged(blocks, norm_tables, *, k: int, L: int, W: int,
     (B, k))``: block b's payload is ``payload[offs[b]: offs[b + 1]]``. On
     the CPU the plain versions have already run."""
     dev = blocks.device
-    tables = PL.tables_from_norm(norm_tables, L, dev)
+    if tables is None:
+        tables = PL.tables_from_norm(norm_tables, L, dev, half="encode")
     words, sizes = PL.encode_lanes(blocks, tables, k=k, L=L, W=W)
     flat, offs = lane_merge_device(words, sizes, pack_bits=pack_bits)
     if dev.type != "cuda":  # the plain versions have run

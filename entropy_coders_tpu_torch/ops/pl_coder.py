@@ -71,6 +71,7 @@ __all__ = [
     "lane_split",
     "lane_split_batch",
     "lane_split_bits",
+    "table_rows",
     "tables_from_norm",
 ]
 
@@ -104,18 +105,22 @@ HOST_TABLES_ON_CUDA = False
 
 
 def tables_from_norm(norm_tables: np.ndarray, L: int, device,
-                     host_tables: bool | None = None) -> LaneTables:
+                     host_tables: bool | None = None,
+                     half: str = "both") -> LaneTables:
     """(B, 256) int32 normalized histograms sharing table log ``L`` -> the
-    flat decode and encode tables on ``device``.
+    flat tables on ``device``: the half a caller reads (``half="decode"``:
+    ``dec``, what B1 reads; ``"encode"``: ``tt_bits``, ``tt_fs`` and
+    ``next_state``, what B2 reads; the JAX package builds only the half it
+    reads too, ``pl_coder.py:775-778, 931``) or ``"both"``. The fields of
+    the half not built are None.
 
     ``host_tables`` picks the route, as in the JAX package
     (``pl_coder.py:736, 895``); both give identical bytes (tests pin it).
-    ``True``: built on the host by ``native.build_{encode,decode}_tables``
-    and copied (what the JAX host-table route feeds its kernels,
-    ``pl_coder.py:775-778, 931``). ``False``: the counts are checked on the
-    host, copied, and ``ops.tables.build_tables`` builds the tables where
-    they are used: kernel D3 on a CUDA device, its plain version on the
-    CPU. ``None``: the C++ build on the CPU; on CUDA the device build
+    ``True``: built on the host by ``native.build_decode_tables`` /
+    ``build_encode_tables`` and copied. ``False``: the counts are checked
+    on the host, copied, and ``ops.tables.build_tables`` builds the tables
+    where they are used: kernel D3 on a CUDA device, its plain version on
+    the CPU. ``None``: the C++ build on the CPU; on CUDA the device build
     (``HOST_TABLES_ON_CUDA``), the faster route end to end at the default
     point, 128 MiB in 1,024 blocks of 128 KiB, on an NVIDIA H100 80GB HBM3
     at 700.00 W (``chip_smoke.py`` phase ``routes``, medians of four runs
@@ -126,6 +131,7 @@ def tables_from_norm(norm_tables: np.ndarray, L: int, device,
     copy is queued without waiting for the card (``unsigned.to_device``'s
     ``non_blocking``), so a lazy call dispatches behind the chunks before
     it. A malformed table raises ValueError on either route."""
+    want = TB.half_code(half)
     dev = torch.device(device)
     if host_tables is None:
         host_tables = HOST_TABLES_ON_CUDA if dev.type == "cuda" else True
@@ -133,12 +139,22 @@ def tables_from_norm(norm_tables: np.ndarray, L: int, device,
         if not host_tables:
             nt = TB.check_norm_tables(norm_tables, int(L))
             return LaneTables(*TB.build_tables(
-                to_device(nt, dev, non_blocking=True), int(L)))
+                to_device(nt, dev, non_blocking=True), int(L), half))
         nt = np.ascontiguousarray(norm_tables, np.int32)
-        table, tt_bits, tt_fs = native.build_encode_tables(nt, int(L))
-        dec = native.build_decode_tables(nt, int(L))
-        return LaneTables(*(to_device(t, dev, non_blocking=True)
+        dec = table = tt_bits = tt_fs = None
+        if want & 2:
+            table, tt_bits, tt_fs = native.build_encode_tables(nt, int(L))
+        if want & 1:
+            dec = native.build_decode_tables(nt, int(L))
+        return LaneTables(*(None if t is None else
+                            to_device(t, dev, non_blocking=True)
                             for t in (dec, tt_bits, tt_fs, table)))
+
+
+def table_rows(tables: LaneTables, lo: int, hi: int) -> LaneTables:
+    """Rows [lo, hi) of every built field of ``tables``: views, each
+    contiguous (a field's rows are)."""
+    return LaneTables(*(None if t is None else t[lo:hi] for t in tables))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -318,11 +334,15 @@ def _d2h(tensors, after: torch.cuda.Event, role: int):
 
 
 def decode_lanes_norm(words, sizes, norm_tables, *, k: int, L: int, R: int,
-                      lazy: bool = False, host_tables: bool | None = None):
+                      lazy: bool = False, host_tables: bool | None = None,
+                      tables: LaneTables | None = None):
     """Batched decode from lane words and the (B, 256) int32 normalized
-    histograms (all sharing table log ``L``), tables built by
-    ``tables_from_norm`` on the words' device (``host_tables`` picks its
-    route; the bytes out are identical). words (B, W, k) uint32 and
+    histograms (all sharing table log ``L``), the decode half of the tables
+    built by ``tables_from_norm`` on the words' device (``host_tables``
+    picks its route; the bytes out are identical), or ``tables`` when given
+    (their ``dec``, already built: ``norm_tables`` is then not read; the
+    container builds a lane group's tables once and hands each chunk its
+    rows, ``table_rows``). words (B, W, k) uint32 and
     sizes (B, k) int32 tensors in; (syms (B, R, k) uint8, finals (B, k)
     uint8) out, on the same device. Raises ValueError on a corrupt stream
     (any lane cursor not exactly drained).
@@ -336,7 +356,9 @@ def decode_lanes_norm(words, sizes, norm_tables, *, k: int, L: int, R: int,
     so every chunk's words and outputs are on the card at once."""
     if words.dim() != 3 or words.shape[2] != k:
         raise ValueError("k must match words (B, W, k)")
-    tables = tables_from_norm(norm_tables, L, words.device, host_tables)
+    if tables is None:
+        tables = tables_from_norm(norm_tables, L, words.device, host_tables,
+                                  half="decode")
     syms, finals, cursors = decode_lanes(words, sizes, tables.dec, L=L, R=R)
     if not lazy:
         if bool((cursors != 0).any()):
@@ -450,7 +472,8 @@ def encode_lanes(blocks, tables: LaneTables, *, k: int, L: int, W: int):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     blocks = _aligned(blocks)
-    tables = LaneTables(*map(_aligned, tables))
+    tables = LaneTables(*(None if t is None else _aligned(t)
+                          for t in tables))
     # B2 writes every row, the zeros past each stream included
     words = torch.empty((B, W, k), dtype=torch.int32, device=dev).view(
         torch.uint32)
@@ -477,11 +500,14 @@ def _w_act(max_bits: int, W: int) -> int:
 
 
 def encode_lanes_norm(blocks, norm_tables, *, k: int, L: int, W: int,
-                      lazy: bool = False, host_tables: bool | None = None):
+                      lazy: bool = False, host_tables: bool | None = None,
+                      tables: LaneTables | None = None):
     """Batched encode from raw blocks (B, n) uint8 with n = (R+1)*k and the
-    (B, 256) int32 normalized histograms (all sharing table log ``L``),
-    tables built by ``tables_from_norm`` on the blocks' device
-    (``host_tables`` picks its route; the bytes out are identical).
+    (B, 256) int32 normalized histograms (all sharing table log ``L``), the
+    encode half of the tables built by ``tables_from_norm`` on the blocks'
+    device (``host_tables`` picks its route; the bytes out are identical),
+    or ``tables`` when given (already built: ``norm_tables`` is then not
+    read).
     Returns (words (B, w_act, k) uint32, sizes (B, k) int32) on that
     device: ``w_act`` is the JAX package's count of populated rows,
     ``min(ceil((max(sizes) // 32 + 2) / 16) * 16, W)``.
@@ -500,7 +526,9 @@ def encode_lanes_norm(blocks, norm_tables, *, k: int, L: int, W: int,
     call, well inside an 80 GB card)."""
     B = blocks.shape[0]
     dev = blocks.device
-    tables = tables_from_norm(norm_tables, L, dev, host_tables)
+    if tables is None:
+        tables = tables_from_norm(norm_tables, L, dev, host_tables,
+                                  half="encode")
     words, sizes = encode_lanes(blocks, tables, k=k, L=L, W=W)
     if not lazy:
         if B == 0:

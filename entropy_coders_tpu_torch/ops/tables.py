@@ -17,11 +17,14 @@ it, and the plain PyTorch versions here keep that formulation, batched over
 ``spread_symbols_dev``, ``build_encode_table`` and ``build_decode_table``
 carry the JAX names and take one ``(256,)`` table or a ``(B, 256)`` batch.
 ``build_tables`` is the wrapper of the hand-written kernel D3
-(``csrc/tables.cu``, ``ect_build_tables``): one CTA per block fills all four
-arrays of ``pl_coder.LaneTables``. It launches the kernel for CUDA tensors
-(and raises if it cannot) and runs the plain versions for CPU tensors;
-``TABLE_LAUNCHES`` counts the launches. Both are byte-identical to
-``native.build_encode_tables`` / ``build_decode_tables`` for L = 5..15.
+(``csrc/tables.cu``, ``ect_build_tables``): it builds the half of
+``pl_coder.LaneTables`` its caller reads (``half="decode"``: ``dec``;
+``"encode"``: ``tt_bits``, ``tt_fs``, ``next_state``) or both, each table
+by a thread-block cluster of ``launch_config``'s size. It launches the
+kernel for CUDA tensors (and raises if it cannot) and runs the plain
+versions for CPU tensors; ``TABLE_LAUNCHES`` counts the launches. Both are
+byte-identical to ``native.build_encode_tables`` /
+``build_decode_tables`` for L = 5..15.
 """
 
 from __future__ import annotations
@@ -34,17 +37,28 @@ from ..kernels.launch import check as _check, launch as _launch
 from .unsigned import int64_to_u32
 
 __all__ = [
+    "HALF_FIELDS",
+    "HALVES",
     "TABLE_LAUNCHES",
     "build_decode_table",
     "build_encode_table",
     "build_tables",
     "build_tables_ref",
     "check_norm_tables",
+    "cluster_choices",
+    "half_code",
+    "launch_config",
     "spread_symbols_dev",
 ]
 
 ALPHABET = 256
 TABLE_LAUNCHES = 0  # D3 launches since import (or since a caller reset it)
+# the halves a build can ask for, as the kernel's `half` argument, and the
+# fields of pl_coder.LaneTables each one builds
+HALVES = {"decode": 1, "encode": 2, "both": 3}
+HALF_FIELDS = {"decode": ("dec",),
+               "encode": ("tt_bits", "tt_fs", "next_state"),
+               "both": ("dec", "tt_bits", "tt_fs", "next_state")}
 
 
 def _ilog2(x: torch.Tensor) -> torch.Tensor:
@@ -211,27 +225,127 @@ def check_norm_tables(norm_tables: np.ndarray, L: int) -> np.ndarray:
     return nt
 
 
-def build_tables_ref(norm: torch.Tensor, L: int):
+def half_code(half: str) -> int:
+    """The kernel's code of a half (``HALVES``); ValueError for another
+    name."""
+    if half not in HALVES:
+        raise ValueError(f"half must be one of {tuple(HALVES)}, got {half!r}")
+    return HALVES[half]
+
+
+def build_tables_ref(norm: torch.Tensor, L: int, half: str = "both"):
     """Plain PyTorch version of D3 (same inputs and outputs as
     ``build_tables``)."""
+    want = half_code(half)
     counts = norm.to(torch.int64)
     symbols = _spread(counts, L)[0]
+    dec = _decode_table(counts, symbols, L) if want & 1 else None
+    if not want & 2:
+        return dec, None, None, None
     next_state, tt_bits, tt_fs = _encode_table(counts, symbols, L)
-    return _decode_table(counts, symbols, L), tt_bits, tt_fs, next_state
+    return dec, tt_bits, tt_fs, next_state
 
 
-def build_tables(norm: torch.Tensor, L: int):
-    """All four table arrays of B blocks at table log ``L`` (D3's wrapper).
+def launch_config(B: int, L: int, n_sm: int,
+                  cluster: int | None = None) -> tuple[int, int]:
+    """(C, T) that D3 launches with for B tables at table log L on a card
+    of ``n_sm`` SMs: each table is built by a cluster of C CTAs of T
+    threads. C (unless ``cluster`` names it) doubles, up to 8 (the portable
+    cluster size), while the B * C CTAs still fit one to an SM and each CTA
+    keeps at least 1,024 slots: a few tables at a large L spread over
+    several SMs, and many tables (the default point's ~1,022 at L = 10)
+    take one CTA each. T is a thread a slot of the CTA, within 128..512,
+    halved (down to 128) while the B * C CTAs would take more than half of
+    the card's threads (1,024 of an SM's 2,048). On an H100 (NVIDIA H100
+    80GB HBM3, 700 W; ``tools/device_host.py --sweep``, the kernel alone)
+    these picks were the fastest of every cluster and CTA size at each
+    main-path shape: B = 4-8 at L = 8 and 11, 512 and 1,022 at L = 10, 4 at
+    L = 15."""
+    size = 1 << L
+    C = cluster
+    if C is None:
+        C = 1
+        while C < 8 and 2 * C * B <= n_sm and size // (2 * C) >= 1024:
+            C *= 2
+    T = min(512, max(128, size // C))
+    while T > 128 and B * C * T > n_sm * 1024:
+        T //= 2
+    return C, T
+
+
+def cluster_choices(L: int) -> list:
+    """The cluster sizes ``launch_config`` can pick at table log L, for
+    some B and SM count: 1, and each of 2, 4, 8 that leaves a CTA 1,024
+    slots or more."""
+    return [c for c in (1, 2, 4, 8) if c == 1 or (1 << L) // c >= 1024]
+
+
+_SMS: dict = {}   # device index -> SM count
+_FNS = None       # (ect_build_tables, ect_build_tables_empty), looked up once
+
+
+def _launchers():
+    global _FNS
+    if _FNS is None:
+        from ..kernels.build import load
+
+        lib = load()
+        _FNS = (lib.ect_build_tables, lib.ect_build_tables_empty)
+    return _FNS
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SMS[dev.index]
+
+
+def _outputs(B: int, L: int, want: int, dev: torch.device):
+    """The half's arrays, (dec, tt_bits, tt_fs, next_state) with None where
+    not built: one ``torch.empty``, and for the encode half 16-byte
+    aligned strided views into it (each a view op: on a slow host a tensor
+    op costs microseconds, which is what a call at the main path's shapes
+    is made of)."""
+    size = 1 << L
+    if want == 1:
+        return (torch.empty((B, size), dtype=torch.uint32, device=dev), None,
+                None, None)
+    n_dec = B * size if want & 1 else 0  # in 4-byte words
+    at_bits = n_dec + B * size // 2
+    buf = torch.empty(at_bits + 2 * B * ALPHABET, dtype=torch.int32,
+                      device=dev)
+    u32 = buf.view(torch.uint32)
+    return (u32.as_strided((B, size), (size, 1), 0) if want & 1 else None,
+            u32.as_strided((B, ALPHABET), (ALPHABET, 1), at_bits),
+            buf.as_strided((B, ALPHABET), (ALPHABET, 1), at_bits + B * ALPHABET),
+            buf.view(torch.uint16).as_strided((B, size), (size, 1), 2 * n_dec))
+
+
+def build_tables(norm: torch.Tensor, L: int, half: str = "both",
+                 cluster: int | None = None, *, threads: int | None = None,
+                 empty: bool = False):
+    """The table arrays of B blocks at table log ``L`` (D3's wrapper).
 
     norm: (B, 256) int32 normalized counts, a valid normalization to 2^L
       slots (``check_norm_tables`` checks it on the host).
+    half: ``"decode"`` builds ``dec`` only, ``"encode"`` ``tt_bits``,
+      ``tt_fs`` and ``next_state`` only, ``"both"`` all four.
+    cluster, threads: the CTAs a table (1, 2, 4 or 8) and the threads a
+      CTA (128, 256 or 512); None takes ``launch_config``'s pick for this
+      card.
     Returns ``(dec (B, 2^L) uint32, tt_bits (B, 256) uint32, tt_fs (B, 256)
     int32, next_state (B, 2^L) uint16)``, the fields of
-    ``pl_coder.LaneTables`` in order.
+    ``pl_coder.LaneTables`` in order, None for each array of the half not
+    built.
 
-    A CUDA tensor launches D3 (and raises if the launch fails); a CPU
-    tensor runs ``build_tables_ref``."""
+    A CUDA tensor launches D3 (and raises if the launch fails, a cluster
+    the runtime refuses included); a CPU tensor runs ``build_tables_ref``.
+    ``empty=True`` launches a kernel that does nothing, with D3's grid,
+    cluster, threads and shared memory (the floor of such a launch), and
+    leaves the outputs unwritten."""
     global TABLE_LAUNCHES
+    want = half_code(half)
     if norm.dim() != 2:
         raise ValueError(f"norm must be (B, 256), got {tuple(norm.shape)}")
     B = norm.shape[0]
@@ -239,26 +353,32 @@ def build_tables(norm: torch.Tensor, L: int):
     if not TABLE_LOG_MIN <= L <= TABLE_LOG_MAX:
         raise ValueError(f"bad table log {L}")
     _check(norm, "norm", (B, ALPHABET), torch.int32, dev)
+    if cluster is not None and (cluster not in (1, 2, 4, 8)
+                                or (1 << L) // cluster < 32):
+        raise ValueError(f"bad cluster size {cluster} at table log {L}")
+    if threads not in (None, 128, 256, 512):
+        raise ValueError(f"bad CTA size {threads}")
     if dev.type == "cpu":
-        return build_tables_ref(norm, L)
+        return build_tables_ref(norm, L, half)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    size = 1 << L
-    dec = torch.empty((B, size), dtype=torch.int32, device=dev).view(
-        torch.uint32)
-    tt_bits = torch.empty((B, ALPHABET), dtype=torch.int32, device=dev).view(
-        torch.uint32)
-    tt_fs = torch.empty((B, ALPHABET), dtype=torch.int32, device=dev)
-    next_state = torch.empty((B, size), dtype=torch.int16, device=dev).view(
-        torch.uint16)
+    out = _outputs(B, L, want, dev)
     if B == 0:
-        return dec, tt_bits, tt_fs, next_state
-    from ..kernels.build import load
-
-    lib = load()
-    with torch.cuda.device(dev):
-        _launch(lib.ect_build_tables, norm.data_ptr(), dec.data_ptr(),
-                next_state.data_ptr(), tt_bits.data_ptr(), tt_fs.data_ptr(),
-                B, L, torch.cuda.current_stream(dev).cuda_stream)
-    TABLE_LAUNCHES += 1
-    return dec, tt_bits, tt_fs, next_state
+        return out
+    C, T = launch_config(B, L, _sm_count(dev), cluster)
+    T = threads or T
+    p_dec, p_bits, p_fs, p_next = (0 if t is None else t.data_ptr()
+                                   for t in out)
+    args = (norm.data_ptr(), p_dec, p_next, p_bits, p_fs, B, L, want, C, T)
+    fn = _launchers()[1 if empty else 0]
+    # the raw pointer of the device's current stream, without a Stream
+    # object (what Triton's launcher reads too)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        _launch(fn, *args, stream)
+    else:
+        with torch.cuda.device(dev):
+            _launch(fn, *args, stream)
+    if not empty:
+        TABLE_LAUNCHES += 1
+    return out

@@ -11,24 +11,35 @@ prints one JSON line per check and per launch shape. ``chip_smoke.py``
 drives the same functions in its phase ``device_host``. At each shape a
 wrapper call of D1 and of D2 also runs once under ``torch.profiler``; the
 device ops it issued are listed and must be at most two kernels and no
-memset or fill; so does one D3 call, which must be one kernel
-(``kernel_ms`` beside the wrapper's ``ms``, at each shape and at L = 15
-on the throughput shape's blocks). ``--old DIR`` names a checkout of
-another commit (e.g. ``git archive <commit> | tar -x -C build/parent``): its
-``entropy_coders_tpu_torch/csrc/repack.cu`` is built into a library of its
-own, and its merge and split, with what their wrapper did around them, are
-timed against the current wrappers in turns (old, new, new, old;
-``--rounds`` times), their outputs compared exactly. Its launchers are
-either the first design's (PR 6: bit offsets in, a zeroed output; the
-wrapper took ``lane_offsets`` and the zero fill) or the current ones.
+memset or fill. D3 is checked in each half (decode, encode, both) at L =
+5..15 and at every cluster size ``ops.tables.launch_config`` can pick there
+(``tables.cluster_choices``), and timed at ``TABLE_SHAPES``: the launch
+shapes of one ~64 MiB chunk (B = 4 at L = 8 and 11, 512 at L = 10, and 4
+at L = 15) and of one lane group (8 at L = 8 and 11, 1,022 at L = 10),
+each half on its own: a wrapper call (CUDA events over queued calls), the
+host's time for the wrapper to return, the kernel alone (the profiler's
+device time of one call: one kernel, no memset or fill), and the floor of
+such a launch, a kernel that does nothing launched the same way (same grid,
+cluster, threads and shared memory, through the same wrapper). ``--old DIR``
+names a checkout of another commit (e.g. ``git archive <commit> | tar -x -C
+build/parent``): its ``entropy_coders_tpu_torch/csrc/repack.cu`` is built
+into a library of its own, and its merge and split, with what their
+wrapper did around them, are timed against the current wrappers in turns
+(old, new, new, old; ``--rounds`` times), their outputs compared exactly.
+Its launchers are either the first design's (bit offsets in, a zeroed
+output; the wrapper took ``lane_offsets`` and the zero fill) or the current
+ones. Its ``tables.cu``, ``pl_decode.cu`` and ``pl_decode_layout.cu`` go
+into another (``load_parent``): D3 is timed against the parent's call in
+turns the same way, and ``chip_smoke.py`` times B1 and the layouts against
+it.
 
 A bound is the bytes the function must move over 3.35 TB/s (an H100 SXM's
 published peak): each input read once, each output written once, counted
 from this run's sizes. Merge: the payload read from the words and written
 to the wire, plus 4 bytes of size a lane. Split: the payload read, 4 bytes
 of size a lane and 8 of offset a block, every word row written. Tables: 1
-KiB of counts read, 6 bytes a slot and 2 KiB of transforms written, a
-block.
+KiB of counts read a block, and the half's arrays written: 4 bytes a slot
+(decode), or 2 bytes a slot and 2 KiB of transforms (encode).
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from .. import native
 from ..kernels import build as KB
 from ..normalize import normalize_batch
 from ..ops import device_repack as DR
+from ..ops import pl_coder as PL
 from ..ops import tables as TB
 from ..ops.histogram import histogram_blocks
 from ..ops.unsigned import to_device, to_numpy
@@ -204,32 +216,53 @@ def table_counts(rng, B: int, L: int) -> np.ndarray:
     return np.stack(rows).astype(np.int32)
 
 
+def _half_arrays(tables, half: str) -> list:
+    """(name, array) of the fields ``half`` builds, LaneTables order."""
+    return [(n, t) for n, t in zip(TB.HALF_FIELDS["both"], tables)
+            if n in TB.HALF_FIELDS[half]]
+
+
+def _cpp_tables(nt: np.ndarray, L: int):
+    table, tt_bits, tt_fs = native.build_encode_tables(nt, L)
+    return native.build_decode_tables(nt, L), tt_bits, tt_fs, table
+
+
 def check_tables(device="cuda", seed: int = 0xD3) -> dict:
     """D3 against its plain version and against
-    ``native.build_{encode,decode}_tables``, exactly: L = 5..15 at B = 4,
-    B = 512 at L = 10, and B equal rows (the shared-table case). Raises
+    ``native.build_{encode,decode}_tables``, exactly, in each half: L =
+    5..15 at B = 4 at every cluster size ``launch_config`` can pick at that
+    L, B = 512 at L = 10 and B equal rows (the shared-table case) at the
+    wrapper's pick; a half leaves the other half's fields None. Raises
     AssertionError on any difference; ``max_abs_err`` is the largest
     difference measured over all compared tables."""
     rng = np.random.default_rng(seed)
-    cases = [(L, 4, False) for L in range(5, 16)] + [(10, 512, False),
-                                                     (11, 8, True)]
-    low, held = 0, Held()
-    for L, B, shared in cases:
+    cases = [(L, 4, False, C) for L in range(5, 16)
+             for C in TB.cluster_choices(L)]
+    cases += [(10, 512, False, None), (11, 8, True, None)]
+    low, held, n = 0, Held(), 0
+    for L, B, shared, C in cases:
         nt = table_counts(rng, 1 if shared else B, L)
         nt = np.repeat(nt, B, 0) if shared else nt
         low += int((nt == -1).sum())
         norm = torch.from_numpy(nt).to(device)
-        got = TB.build_tables(norm, L)
-        want = TB.build_tables_ref(norm, L)
-        table, tt_bits, tt_fs = native.build_encode_tables(nt, L)
-        cpp = (native.build_decode_tables(nt, L), tt_bits, tt_fs, table)
-        for name, g, w, c in zip(("dec", "tt_bits", "tt_fs", "next_state"),
-                                 got, want, cpp):
-            held(_diff(g, w), f"{name} != plain version (L={L}, B={B})")
-            held(_diff_host(g, c), f"{name} != C++ (L={L}, B={B})")
+        cpp = _cpp_tables(nt, L)
+        for half in TB.HALVES:
+            got = TB.build_tables(norm, L, half, C)
+            want = TB.build_tables_ref(norm, L, half)
+            require(sum(t is not None for t in got)
+                    == len(_half_arrays(got, half)),
+                    f"{half}: another half's field built (L={L})")
+            tag = f"L={L}, B={B}, half={half}, cluster={C}"
+            for (name, g), (_, w), (_, c) in zip(_half_arrays(got, half),
+                                                 _half_arrays(want, half),
+                                                 _half_arrays(cpp, half)):
+                held(_diff(g, w), f"{name} != plain version ({tag})")
+                held(_diff_host(g, c), f"{name} != C++ ({tag})")
+            n += 1
     require(low > 0, "no table with a -1 count")
-    return {"cases": len(cases), "low_symbols": low,
-            "max_abs_err": held.worst}
+    return {"cases": n, "clusters": sorted({c for *_, c in cases
+                                            if c is not None}),
+            "low_symbols": low, "max_abs_err": held.worst}
 
 
 def _host_ms(fn) -> float:
@@ -543,57 +576,253 @@ def shape_repack(inp: LS.ShapeInputs, pack_bits: bool, old=None,
             "split": split}
 
 
-def shape_tables(inp: LS.ShapeInputs) -> dict:
-    """D3 at one launch shape (``tables_row`` on the shape's blocks)."""
-    return tables_row(inp.name, inp.blocks, inp.L)
+# name -> (B, block bytes, table log; None: the default policy's): one
+# chunk's launch (and L = 15) and one lane group's (the
+# container builds a group's tables once: 8 blocks of 16 MiB at the
+# throughput and parity points, the default point's ~1,022 of 128 KiB)
+TABLE_SHAPES = {"throughput": (4, 16 << 20, 8), "parity": (4, 16 << 20, 11),
+                "default": (512, 128 << 10, None),
+                "throughput_L15": (4, 16 << 20, 15),
+                "group_throughput": (8, 16 << 20, 8),
+                "group_parity": (8, 16 << 20, 11),
+                "group_default": (1022, 128 << 10, None)}
 
 
-def tables_row(name: str, blocks: torch.Tensor, L: int) -> dict:
+def _cpp_half(nt: np.ndarray, L: int, half: str):
+    if half != "decode":
+        native.build_encode_tables(nt, L)
+    if half != "encode":
+        native.build_decode_tables(nt, L)
+
+
+def host_ms(fn, calls: int = 20) -> float:
+    """The host's ms for ``fn`` to return, the mean over ``calls`` calls
+    after one outside them, the card synchronised before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def tables_row(name: str, blocks: torch.Tensor, L: int, parent=None,
+               rounds: int = 2) -> dict:
     """D3 on the normalized counts of ``blocks`` (B, block bytes) on the
-    card at table log ``L``: equal to the C++ build and to its plain
-    version (``max_abs_err``: the largest difference measured); its time
-    through the wrapper beside the plain version's, the C++ builds' and
-    the bound; and the kernel alone, the profiler's device time of one
-    call (``kernel_ms``; ``device_ops``: one kernel, no memset or fill)."""
+    card at table log ``L``: each half equal to the C++ build and to its
+    plain version (``max_abs_err``: the largest difference measured). Each
+    half: a wrapper call (CUDA events over queued calls) in turns with the
+    C++ build of that half, the host's time for a call to return, the
+    plain version's, the kernel alone (``kernel_ms``, the profiler's
+    device time of one call: one kernel, no memset or fill), the floor of
+    such a launch (``empty_ms`` through the wrapper, ``empty_kernel_ms``
+    alone) and the byte bound. With ``parent`` (``load_parent``), its call
+    (which built both halves) in turns with a current call of both."""
     B, n = blocks.shape
     nt, logs = normalize_batch(histogram_blocks(blocks).cpu().numpy(), n, L)
     require((logs == L).all(), f"{name}: table log raised above {L}")
     nt = TB.check_norm_tables(nt, L)
     norm = to_device(nt, blocks.device)
-    table, tt_bits, tt_fs = native.build_encode_tables(nt, L)
-    want = (native.build_decode_tables(nt, L), tt_bits, tt_fs, table)
+    cpp = _cpp_tables(nt, L)
     held = Held()
-    for g, p, w in zip(TB.build_tables(norm, L),
-                       TB.build_tables_ref(norm, L), want):
-        held(_diff_host(g, w), f"{name}: D3 != the C++ tables")
-        held(_diff(g, p), f"{name}: D3 != plain version")
+    for half in TB.HALVES:
+        for (_, g), (_, p), (_, w) in zip(
+                _half_arrays(TB.build_tables(norm, L, half), half),
+                _half_arrays(TB.build_tables_ref(norm, L, half), half),
+                _half_arrays(cpp, half)):
+            held(_diff_host(g, w), f"{name}: D3 != the C++ tables ({half})")
+            held(_diff(g, p), f"{name}: D3 != plain version ({half})")
+    C, T = TB.launch_config(B, L, torch.cuda.get_device_properties(
+        blocks.device).multi_processor_count)
+    row = {"B": B, "L": L, "cluster": C, "threads": T,
+           "max_abs_err": held.worst}
+    for half in ("decode", "encode"):
+        def call(h=half):
+            TB.build_tables(norm, L, h)
 
-    def cpp():
-        native.build_encode_tables(nt, L)
-        native.build_decode_tables(nt, L)
+        def empty(h=half):
+            TB.build_tables(norm, L, h, empty=True)
 
-    def call():
-        TB.build_tables(norm, L)
+        r = _in_turns(call, lambda h=half: _cpp_half(nt, L, h))
+        r["host_ms"] = host_ms(call)
+        r["plain_ms"] = cuda_ms(lambda h=half: TB.build_tables_ref(norm, L, h),
+                                runs=2, warmup=1)[0]
+        ops = device_ops(call)
+        r["device_ops"] = check_ops(ops, f"{name} tables {half}")
+        require(r["device_ops"]["kernels"] == 1,
+                f"{name}: D3 issued {r['device_ops']['kernels']} kernels a "
+                "call")
+        r["kernel_ms"] = kernel_ms(ops)
+        r["empty_ms"] = cuda_ms(empty, runs=5, reps=3)[0]
+        r["empty_kernel_ms"] = kernel_ms(device_ops(empty))
+        slot_bytes = 4 if half == "decode" else 2
+        r.update(_bound(B * (1024 + slot_bytes * (1 << L)
+                             + (2048 if half == "encode" else 0))))
+        r["share_of_bound"] = r["bound_ms"] / r["kernel_ms"]
+        r["share_of_empty"] = r["empty_kernel_ms"] / r["kernel_ms"]
+        row[half] = r
+    if parent is not None:
+        got = old_tables(parent, norm, L)
+        for (_, g), (_, w) in zip(_half_arrays(got, "both"),
+                                  _half_arrays(cpp, "both")):
+            require(_diff_host(g, w) == 0, f"{name}: the parent's D3 differs")
+        row["both"] = old_in_turns(lambda: old_tables(parent, norm, L),
+                                   lambda: TB.build_tables(norm, L, "both"),
+                                   rounds)
+        ops = device_ops(lambda: old_tables(parent, norm, L))
+        row["both"]["old_kernel_ms"] = kernel_ms(ops)
+    return row
 
-    row = _in_turns(call, cpp)
-    row["plain_ms"] = cuda_ms(lambda: TB.build_tables_ref(norm, L), runs=2,
-                              warmup=1)[0]
-    ops = device_ops(call)
-    row["device_ops"] = check_ops(ops, f"{name} tables")
-    require(row["device_ops"]["kernels"] == 1,
-            f"{name}: D3 issued {row['device_ops']['kernels']} kernels a call")
-    row["kernel_ms"] = kernel_ms(ops)
-    row.update(_bound(B * (1024 + 6 * (1 << L) + 2048)),
-               max_abs_err=held.worst)
-    return {"B": B, "L": L, **row}
+
+def tables_shapes(data: np.ndarray, parent=None, device="cuda") -> dict:
+    """``tables_row`` at every ``TABLE_SHAPES`` shape, on the first B
+    blocks of ``data`` (cycled where it is shorter)."""
+    out = {}
+    for name, (B, block, L) in TABLE_SHAPES.items():
+        L = L if L is not None else LS.default_log(data, block)
+        blocks = np.resize(data, B * block).reshape(B, block)
+        out[name] = tables_row(name, torch.from_numpy(blocks).to(device), L,
+                               parent)
+    return out
 
 
-def tables_high(data: np.ndarray, device="cuda") -> dict:
-    """D3 at L = 15 on the throughput launch's blocks (B = 4 of 16 MiB)."""
-    s = LS.SHAPES["throughput"]
-    blocks = np.resize(data, s["B"] * s["block"]).reshape(s["B"], s["block"])
-    return tables_row("throughput_L15", torch.from_numpy(blocks).to(device),
-                      15)
+def tables_sweep(data: np.ndarray, device="cuda") -> dict:
+    """D3's decode half alone (the profiler's device time of one call) at
+    every ``TABLE_SHAPES`` shape, every cluster size ``launch_config`` can
+    pick at its L that keeps the CTAs within the SMs, and every CTA size:
+    {shape: {"C<c>_T<t>": ms}} beside the wrapper's pick."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    out = {}
+    for name, (B, block, L) in TABLE_SHAPES.items():
+        L = L if L is not None else LS.default_log(data, block)
+        blocks = np.resize(data, B * block).reshape(B, block)
+        nt, _ = normalize_batch(histogram_blocks(
+            torch.from_numpy(blocks).to(device)).cpu().numpy(), block, L)
+        norm = to_device(TB.check_norm_tables(nt, L), device)
+        row = {"B": B, "L": L, "pick": TB.launch_config(B, L, n_sm)}
+        for C in TB.cluster_choices(L):
+            if C > 1 and B * C > n_sm:
+                continue
+            for T in (128, 256, 512):
+                row[f"C{C}_T{T}"] = kernel_ms(device_ops(
+                    lambda: TB.build_tables(norm, L, "decode", C, threads=T)))
+        out[name] = row
+    return out
+
+
+# --- another commit's D3, B1 and layout kernels ------------------------------
+
+
+def load_parent(old_root: Path) -> ctypes.CDLL:
+    """Build ``old_root``'s ``tables.cu``, ``pl_decode.cu`` and
+    ``pl_decode_layout.cu`` into a library of their own (one nvcc a source,
+    started together, the current flags; ``kernels.build.compile_library``)
+    and load it. ``lib.path`` is the library; ``lib.tables_half`` says
+    whether its D3 launcher takes a half and a launch shape (else it builds
+    both halves, one CTA a table), ``lib.layout_threads`` whether its layout
+    launcher takes B1's CTA size and refill group."""
+    csrc = old_root / "entropy_coders_tpu_torch" / "csrc"
+    srcs = [csrc / f"{n}.cu" for n in ("tables", "pl_decode",
+                                       "pl_decode_layout")]
+    h = hashlib.sha256(b"".join(p.read_bytes() for p in sorted(
+        csrc.glob("*.cu*")))).hexdigest()[:16]
+    out = KB.build_dir() / f"libect_torch_parent_{h}.so"
+    if not out.exists():
+        KB.writable_build_dir()
+        KB.compile_library(srcs, out)
+    lib = ctypes.CDLL(str(out))
+    lib.path = out
+
+    def head(src: Path, fn: str) -> str:
+        text = src.read_text()
+        text = text[text.index(f'extern "C" int {fn}('):]
+        return text[: text.index(")")]
+
+    lib.tables_half = "int half" in head(srcs[0], "ect_build_tables")
+    lib.layout_threads = "int T" in head(srcs[2], "ect_pl_decode_layout")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ect_build_tables.argtypes = (KB._SIGNATURES["ect_build_tables"]
+                                     if lib.tables_half
+                                     else [P] * 5 + [I, I, P])
+    lib.ect_pl_decode.argtypes = KB._SIGNATURES["ect_pl_decode"]
+    lib.ect_pl_decode_layout.argtypes = (
+        KB._SIGNATURES["ect_pl_decode_layout"] if lib.layout_threads
+        else [P] * 7 + [I] * 6 + [P])
+    for fn in (lib.ect_build_tables, lib.ect_pl_decode,
+               lib.ect_pl_decode_layout):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def old_tables(lib, norm: torch.Tensor, L: int):
+    """The other commit's D3 call, with what its wrapper did around it:
+    (dec, tt_bits, tt_fs, next_state), both halves. A launcher without
+    halves got four ``torch.empty`` outputs and a device guard."""
+    B, dev = norm.shape[0], norm.device
+    size = 1 << L
+    dec = torch.empty((B, size), dtype=torch.int32, device=dev)
+    tt_bits = torch.empty((B, 256), dtype=torch.int32, device=dev)
+    tt_fs = torch.empty((B, 256), dtype=torch.int32, device=dev)
+    nxt = torch.empty((B, size), dtype=torch.int16, device=dev)
+    args = [norm.data_ptr(), dec.data_ptr(), nxt.data_ptr(),
+            tt_bits.data_ptr(), tt_fs.data_ptr(), B, L]
+    if lib.tables_half:
+        args += [TB.HALVES["both"], *TB.launch_config(
+            B, L, torch.cuda.get_device_properties(dev).multi_processor_count)]
+    with torch.cuda.device(dev):
+        _old_rc(lib.ect_build_tables(
+            *args, torch.cuda.current_stream(dev).cuda_stream), "tables")
+    return (dec.view(torch.uint32), tt_bits.view(torch.uint32), tt_fs,
+            nxt.view(torch.uint16))
+
+
+def current_kernels() -> ctypes.CDLL:
+    """This commit's kernels' library, marked as ``load_parent`` marks
+    another's, so that ``decode_with``/``layout_with`` call both commits'
+    kernels the same way."""
+    lib = KB.load()
+    lib.path = KB.build()
+    lib.tables_half = lib.layout_threads = True
+    return lib
+
+
+def decode_with(lib, words, sizes, dec, L: int, R: int):
+    """B1 of ``lib`` (``load_parent``, ``current_kernels``; a launcher
+    that takes the CTA size and refill group) on one
+    launch's tensors, the outputs ``torch.empty``: the same host work for
+    either commit, so that their times in turns differ by the kernel."""
+    B, W, k = words.shape
+    dev = words.device
+    out = (torch.empty((B, R, k), dtype=torch.uint8, device=dev),
+           torch.empty((B, k), dtype=torch.uint8, device=dev),
+           torch.empty((B, k), dtype=torch.int32, device=dev))
+    _old_rc(lib.ect_pl_decode(
+        words.data_ptr(), sizes.data_ptr(), dec.data_ptr(),
+        *(o.data_ptr() for o in out), B, W, k, L, R,
+        *PL.lane_config("decode", k, L),
+        torch.cuda.current_stream(dev).cuda_stream), "decode")
+    return out
+
+
+def layout_with(lib, words, sizes, table, layout: str, L: int, R: int):
+    """The layout kernel of ``lib`` on ``layout``'s planes, called as
+    ``decode_with`` calls B1."""
+    from . import l10_attack_harness as H
+
+    B, W, k = words.shape
+    dev = words.device
+    out = (torch.empty((B, R, k), dtype=torch.uint8, device=dev),
+           torch.empty((B, k), dtype=torch.uint8, device=dev),
+           torch.empty((B, k), dtype=torch.int32, device=dev))
+    pick = PL.lane_config("decode", k, L) if lib.layout_threads else ()
+    _old_rc(lib.ect_pl_decode_layout(
+        words.data_ptr(), sizes.data_ptr(), table[0].data_ptr(),
+        table[1].data_ptr() if len(table) > 1 else None,
+        *(o.data_ptr() for o in out), B, W, k, L, R, H.LAYOUTS.index(layout),
+        *pick, torch.cuda.current_stream(dev).cuda_stream), "layout")
+    return out
 
 
 def main(argv=None) -> int:
@@ -602,22 +831,28 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path, help="checkout of another commit")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--sweep", action="store_true",
+                    help="D3 at every cluster and CTA size, then stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("device_host checks and times kernels on a CUDA "
                            "device; none here")
+    if args.sweep:
+        for name, row in tables_sweep(gen_sequence(0.2, 128 << 20)).items():
+            print(json.dumps({"sweep": name, **row}), flush=True)
+        return 0
     old = load_old(args.old) if args.old is not None else None
+    parent = load_parent(args.old) if args.old is not None else None
     print(json.dumps({"check": "repack", **check_repack()}), flush=True)
     print(json.dumps({"check": "tables", **check_tables()}), flush=True)
     data = gen_sequence(0.2, 128 << 20)
     for name in LS.SHAPES:
         inp = LS.shape_inputs(name, data)
         print(json.dumps({"shape": name, "repack": shape_repack(
-            inp, name == "parity", old, args.rounds),
-            "tables": shape_tables(inp)}), flush=True)
+            inp, name == "parity", old, args.rounds)}), flush=True)
         del inp
-    print(json.dumps({"shape": "throughput_L15", "tables": tables_high(data)}),
-          flush=True)
+    for name, row in tables_shapes(data, parent).items():
+        print(json.dumps({"shape": name, "tables": row}), flush=True)
     return 0
 
 

@@ -126,7 +126,7 @@ def run_layouts(inp: LaneInputs, layouts=H.LAYOUTS) -> dict:
                      f"{tag} {name}: decoded bytes differ from the input")
         calls[name] = (lambda t=table, n=name: H.decode_lanes_layout(
             words, sizes, t, layout=n, L=L, R=R), H.table_bytes(name, L),
-            H.layout_occupancy(name, L, dev) if timed else None)
+            H.layout_occupancy(name, L, dev, k) if timed else None)
     # timed in turns, forward then backward, so that no decode gains from
     # its place in the order (clocks ramping up, caches warming)
     runs = {name: [] for name in calls}

@@ -5,9 +5,11 @@ decode (``ops.pl_coder.decode_lanes``) with the table lookup made pluggable,
 so that table layouts can be measured without touching B1. On the TPU an
 ``entry_fn(tbl, states, S, L) -> (nb, base, sym)`` picked the layout of the
 gather rows; here the layout picks how the block's table is stored in shared
-memory and unpacked, one instantiation of the kernel in
-``csrc/pl_decode_layout.cu`` per layout. The layouts (``LAYOUTS``), bytes
-per entry, and the JAX ``entry_fn`` each one follows:
+memory and unpacked, one instantiation of B1's own kernel
+(``csrc/lane_decode.cuh``, launched from ``csrc/pl_decode_layout.cu``) per
+layout, with B1's CTA size and refill group (``PL.lane_config``). The
+layouts (``LAYOUTS``), bytes per entry, and the JAX ``entry_fn`` each one
+follows:
 
 * ``flat`` (4): u32 sym << 24 | nb << 16 | base, B1's own, the control
   (``ops/pl_coder.py:329-330``);
@@ -33,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.pl_coder import _check, _launch, _read_bits
+from ..ops.pl_coder import _aligned, _check, _launch, _read_bits, lane_config
 from ..ops.unsigned import as_int64
 
 __all__ = [
@@ -223,6 +225,8 @@ def decode_lanes_layout(words, sizes, table, *, layout: str, L: int, R: int):
                                        L=L, R=R)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    words, sizes = _aligned(words), _aligned(sizes)
+    table = tuple(map(_aligned, table))
     syms = torch.empty((B, R, k), dtype=torch.uint8, device=dev)
     finals = torch.empty((B, k), dtype=torch.uint8, device=dev)
     cursors = torch.empty((B, k), dtype=torch.int32, device=dev)
@@ -236,17 +240,18 @@ def decode_lanes_layout(words, sizes, table, *, layout: str, L: int, R: int):
                 table[0].data_ptr(),
                 table[1].data_ptr() if len(table) > 1 else None,
                 syms.data_ptr(), finals.data_ptr(), cursors.data_ptr(), B, W,
-                k, L, R, _CODE[layout],
+                k, L, R, _CODE[layout], *lane_config("decode", k, L),
                 torch.cuda.current_stream(dev).cuda_stream)
     LAYOUT_LAUNCHES[layout] += 1
     return syms, finals, cursors
 
 
-def layout_occupancy(layout: str, L: int, device=None) -> int:
-    """Co-resident 128-thread CTAs per SM of ``layout``'s kernel at table
-    log ``L`` on a CUDA ``device``, from
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` with the table's
-    shared memory. Raises without CUDA."""
+def layout_occupancy(layout: str, L: int, device=None, k: int = 16384) -> int:
+    """Co-resident CTAs per SM of ``layout``'s kernel at table log ``L`` for
+    k lanes (the CTA size and refill group of ``PL.lane_config``) on a CUDA
+    ``device``, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` with
+    the kernel's shared memory: the table, the lanes' word ring and the
+    symbol tiles. Raises without CUDA."""
     layout = _layout(layout)
     _check_L(layout, L)
     from ..kernels.build import load
@@ -254,7 +259,8 @@ def layout_occupancy(layout: str, L: int, device=None) -> int:
     lib = load()
     with torch.cuda.device(device if device is not None
                            else torch.cuda.current_device()):
-        n = lib.ect_pl_decode_layout_occupancy(_CODE[layout], L)
+        n = lib.ect_pl_decode_layout_occupancy(_CODE[layout], L,
+                                               *lane_config("decode", k, L))
     if n < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
     return n

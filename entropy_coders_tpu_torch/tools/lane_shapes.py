@@ -527,6 +527,49 @@ def sass_function(text: str, name: str) -> str | None:
     return body[: nxt if nxt >= 0 else None]
 
 
+def _insns_text(body: str) -> list:
+    """A function's SASS as its instructions' text, addresses and
+    encodings left out."""
+    return ["".join(m.group(i) or "" for i in (1, 2, 3)).strip()
+            for m in _LINE.finditer(body)]
+
+
+# B1 in a build: lane_decode_kernel<FlatFormat, T, RF> of pl_decode.cu (the
+# layout kernel's flat instantiation lives in pl_decode_layout.cu's own
+# namespace), or pl_decode_kernel<T, RF> before the kernel moved into
+# lane_decode.cuh
+B1_SASS = (r"(?:pl_decode_kernelI|_pl_decode_cu_\S*lane_decode_kernelI\S*"
+           r"FlatFormatE)Li{T}ELi{RF}E")
+FLAT_LAYOUT_SASS = (r"_pl_decode_layout_cu_\S*lane_decode_kernelI\S*"
+                    r"FlatFormatELi{T}ELi{RF}E")
+
+
+def sass_diff(text_a: str, pat_a: str, text_b: str, pat_b: str) -> dict:
+    """Two kernels' SASS (the functions matching ``pat_a`` in ``text_a``
+    and ``pat_b`` in ``text_b``, each pattern formatted with the
+    instantiation's T and RF), instantiation by instantiation: the
+    instructions that differ, position by position, and both counts (0
+    and equal counts: the same code). None where one is missing."""
+    out = {}
+    for T in (128, 256, 512):
+        for RF in (1, 2):
+            bodies = [sass_function(text, pat.format(T=T, RF=RF))
+                      for text, pat in ((text_a, pat_a), (text_b, pat_b))]
+            if None in bodies:
+                out[f"T{T}_RF{RF}"] = None
+                continue
+            a, b = map(_insns_text, bodies)
+            out[f"T{T}_RF{RF}"] = {
+                "differ": sum(x != y for x, y in zip(a, b)),
+                "count": [len(a), len(b)]}
+    return out
+
+
+def b1_sass_diff(old_text: str, new_text: str) -> dict:
+    """B1's SASS in two builds (``sass_diff``)."""
+    return sass_diff(old_text, B1_SASS, new_text, B1_SASS)
+
+
 def round_stats(text: str, kind: str, T: int, group: int,
                 lat: dict) -> dict | None:
     """Per round of the ``kind`` kernel built for T threads and ``group``
@@ -536,8 +579,8 @@ def round_stats(text: str, kind: str, T: int, group: int,
     program order (``inorder_cycles``), over the unrolled tile's tightest
     run of 32 round marks (31 rounds). None when the function is not in
     ``text``."""
-    fn = "pl_decode_kernel" if kind == "decode" else "pl_encode_kernel"
-    body = sass_function(text, f"{fn}ILi{T}ELi{group}E")
+    pat = B1_SASS if kind == "decode" else "pl_encode_kernelILi{T}ELi{RF}E"
+    body = sass_function(text, pat.format(T=T, RF=group))
     if body is None:
         return None
     insns = parse_sass(body)

@@ -6,9 +6,15 @@
 // statics (so blocks that use them run one after the other). Shuffles
 // exchange through a 32-slot array per warp: write, wait, read, wait. Fences
 // are sequentially consistent fences, __nanosleep a yield, and __trap throws
-// EmuTrap, which the launcher catches. Used by
-// tests/test_torch_repack_emulated.py (repack_main.cpp) and
-// tests/test_torch_ring_emulated.py (ring_main.cpp).
+// EmuTrap, which the launcher catches. __match_any_sync exchanges through
+// the same array. A thread-block cluster is a set of blocks run at once:
+// cooperative_groups::this_cluster() reads the cluster (EmuCluster: a
+// barrier over all its threads, each block's shared memory) that the
+// launcher put in `emu_cluster`. Used by
+// tests/test_torch_repack_emulated.py (repack_main.cpp),
+// tests/test_torch_ring_emulated.py (ring_main.cpp),
+// tests/test_torch_tables_emulated.py (tables_main.cpp) and
+// tests/test_torch_lane_decode_emulated.py (lane_decode_main.cpp).
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -81,3 +87,35 @@ template <class T> T __shfl_down_sync(unsigned, T v, int d) {
   const int lane = threadIdx.x & 31;
   return emu_shfl(v, lane + d < 32 ? lane + d : lane);
 }
+inline unsigned __match_any_sync(unsigned, unsigned v) {
+  const int lane = threadIdx.x & 31;
+  emu_warp->slot[lane] = v;
+  emu_warp->bar.arrive_and_wait();
+  unsigned peers = 0;
+  for (int i = 0; i < 32; i++)
+    if ((unsigned)emu_warp->slot[i] == v) peers |= 1u << i;
+  emu_warp->bar.arrive_and_wait();
+  return peers;
+}
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __clz(int v) { return v ? __builtin_clz((unsigned)v) : 32; }
+inline int __ffs(int v) { return __builtin_ffs(v); }
+
+struct EmuCluster {
+  std::barrier<>* bar;         // every thread of every block of the cluster
+  unsigned char* smem[8];      // each block's dynamic shared memory
+};
+extern thread_local EmuCluster* emu_cluster;
+extern thread_local unsigned emu_cluster_rank;
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const { emu_cluster->bar->arrive_and_wait(); }
+  unsigned block_rank() const { return emu_cluster_rank; }
+  template <class T> T* map_shared_rank(T* addr, int rank) const {
+    const unsigned char* mine = emu_cluster->smem[emu_cluster_rank];
+    return reinterpret_cast<T*>(emu_cluster->smem[rank] +
+                                (reinterpret_cast<unsigned char*>(addr) - mine));
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups

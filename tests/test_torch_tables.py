@@ -215,3 +215,144 @@ def test_lane_entries_host_tables_routes_equal(L):
     for b in range(B):
         assert JPL.lane_merge(np.asarray(jw)[b], np.asarray(js)[b]) == \
             PL.lane_merge(out[False][0][b], out[False][1][b])
+
+
+# --- the half a caller reads, and one build a lane group ---------------------
+
+HALF_FIELDS = {"decode": ("dec",), "encode": ("tt_bits", "tt_fs", "next_state"),
+               "both": ("dec", "tt_bits", "tt_fs", "next_state")}
+
+
+@pytest.mark.parametrize("route", [True, False], ids=["host", "device"])
+@pytest.mark.parametrize("half", list(HALF_FIELDS))
+@pytest.mark.parametrize("L", [5, 10, 15])
+def test_tables_from_norm_builds_only_its_half(L, half, route, monkeypatch):
+    """``half`` fills only the fields its caller reads, equal to the whole
+    build's, on both routes; the host route runs only that half's C++ build
+    and the device route asks ``build_tables`` for that half only."""
+    nt = norm_tables(500 + L, 3, L)
+    whole = PL.tables_from_norm(nt, L, "cpu", host_tables=route)
+    calls = []
+    for mod, name in ((native, "build_encode_tables"),
+                      (native, "build_decode_tables"),
+                      (TB, "build_tables")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **kw: (
+            calls.append((_n, kw.get("half", a[2] if len(a) > 2 else None)))
+            or _r(*a, **kw)))
+    got = PL.tables_from_norm(nt, L, "cpu", host_tables=route, half=half)
+    for name in PL.LaneTables._fields:
+        g = getattr(got, name)
+        if name in HALF_FIELDS[half]:
+            w = getattr(whole, name)
+            assert g.dtype == w.dtype
+            assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+        else:
+            assert g is None, name
+    if route:
+        want = {"decode": [("build_decode_tables", None)],
+                "encode": [("build_encode_tables", None)],
+                "both": [("build_encode_tables", None),
+                         ("build_decode_tables", None)]}[half]
+        assert calls == want
+    else:
+        assert calls == [("build_tables", half)]
+
+
+@pytest.mark.parametrize("half", list(HALF_FIELDS))
+def test_build_tables_ref_half(half):
+    nt = torch.from_numpy(norm_tables(600, 2, 11))
+    whole = TB.build_tables_ref(nt, 11)
+    got = TB.build_tables_ref(nt, 11, half)
+    for name, g, w in zip(PL.LaneTables._fields, got, whole):
+        if name in HALF_FIELDS[half]:
+            assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+        else:
+            assert g is None
+
+
+@pytest.mark.parametrize("route", [True, False], ids=["host", "device"])
+@pytest.mark.parametrize("half", list(HALF_FIELDS))
+def test_no_blocks_and_malformed_by_half(half, route):
+    """B == 0 gives empty arrays of the half's fields; a malformed table
+    raises ValueError whichever half is asked for, on either route."""
+    got = PL.tables_from_norm(np.zeros((0, 256), np.int32), 9, "cpu",
+                              host_tables=route, half=half)
+    for name in PL.LaneTables._fields:
+        t = getattr(got, name)
+        if name in HALF_FIELDS[half]:
+            assert t.shape[0] == 0
+        else:
+            assert t is None
+    nt = norm_tables(2, 2, 9)
+    nt[1, 0] += 1
+    with pytest.raises(ValueError):
+        PL.tables_from_norm(nt, 9, "cpu", host_tables=route, half=half)
+    with pytest.raises(ValueError):
+        PL.tables_from_norm(norm_tables(2, 2, 9), 9, "cpu", host_tables=route,
+                            half="neither")
+
+
+def test_build_tables_checks_half_and_cluster():
+    nt = torch.from_numpy(norm_tables(3, 2, 9))
+    with pytest.raises(ValueError):
+        TB.build_tables(nt, 9, "dec")
+    for bad in (3, 16, 0):
+        with pytest.raises(ValueError):
+            TB.build_tables(nt, 9, "both", cluster=bad)
+    with pytest.raises(ValueError):  # fewer than 32 slots a CTA
+        TB.build_tables(torch.from_numpy(norm_tables(3, 2, 5)), 5, cluster=2)
+
+
+@pytest.fixture(scope="module")
+def grouped_frame():
+    """Data whose blocks fall into two table-log groups of several blocks,
+    and the JAX package's frame of it (Pallas in interpret mode)."""
+    from entropy_coders_tpu import frame as JF
+    from tests.conftest import gen_sequence
+
+    data = np.concatenate([gen_sequence(0.1, 5 * 4096, seed=3),
+                           gen_sequence(0.4, 4 * 4096, seed=4)])
+    kw = dict(block_size=4096, k=128, lanes=True)
+    return data, kw, JF.compress(data, lanes=True, interpret=True,
+                                 block_size=4096, k=128)
+
+
+@pytest.mark.parametrize("route", [True, False], ids=["host", "device"])
+@pytest.mark.parametrize("repack", [False, True], ids=["cpp", "device"])
+def test_lane_group_builds_its_tables_once(grouped_frame, repack, route,
+                                           monkeypatch):
+    """With 2-block chunks each lane group spans several chunks, yet its
+    tables are built once a direction, encode only the encode half and
+    decode only ``dec``, on either table route (``host_tables``, forced
+    here: on the CPU the container takes the C++ build); every chunk's
+    kernel call gets its rows of them (views, no build of its own); the
+    frame is the JAX package's."""
+    from entropy_coders_tpu_torch import frame as F
+
+    data, kw, jax_frame = grouped_frame
+    monkeypatch.setattr(F, "_CHUNK_RAW", 2 * 4096)
+    monkeypatch.setattr(F, "_DEVICE_REPACK", repack)
+    builds = []
+    real = PL.tables_from_norm
+
+    def counted(norm_tables, L, device, host_tables=None, half="both"):
+        builds.append((half, len(norm_tables), int(L)))
+        return real(norm_tables, L, device, route, half)
+
+    monkeypatch.setattr(PL, "tables_from_norm", counted)
+    frame = F.compress(data, device="cpu", **kw)
+    assert frame == jax_frame
+    pf = F._parse_frame(frame)
+    groups = {}
+    for i in range(pf.n_blocks):
+        if pf.modes[i] == F.MODE_FSE_PL:
+            l2 = F._read_block_header(pf.section(i))[1]
+            groups[l2] = groups.get(l2, 0) + 1
+    assert len(groups) >= 2 and max(groups.values()) >= 3
+    assert sorted(builds) == sorted(("encode", n, l2)
+                                    for l2, n in groups.items())
+    builds.clear()
+    assert F.decompress(frame, device="cpu") == data.tobytes()
+    assert sorted(builds) == sorted(("decode", n, l2)
+                                    for l2, n in groups.items())
