@@ -42,6 +42,16 @@ what their wrappers did (``old_ms``), and B1 at each launch shape and B1
 and every layout at L=10 through one call path for both commits, outputs
 equal, with B1's SASS compared instruction by instruction; without it
 ``old_ms`` is null.
+Phase ``lane_entries`` drives the JAX package's public lane entries
+(``ops.encode_lanes`` / ``decode_lanes``, host numpy inputs, the tables
+as ``(table, tt_bits, tt_fs)`` lists and packed rows from the port's host
+library) at the three launch shapes: the encode equals its plain version
+on the CPU on one block (``w_act`` included) and ``encode_call`` on the
+same blocks and tables, trimmed the same way; the decode gives the input
+back; a corrupted lane size raises ValueError; each call launches exactly
+one B2 or B1. Each entry's host and CUDA-event times stand beside those
+of the wrapper call it makes, on device-resident inputs. It runs after
+the main path's launch counts are read.
 Phase ``layouts`` drives the decode table-layout tools
 (``entropy_coders_tpu_torch.tools``, kernels B4/B5): ``l10_attack.run`` at
 L=10 on the 128 MiB data and ``upack_hilog.run`` at L=11 and 13 (64 MiB,
@@ -264,11 +274,11 @@ def compare_lanes(blocks_np, L, k, device="cuda", time_kernels=False):
     tabs = PL.tables_from_norm(nt, L, device)
     blocks = torch.from_numpy(blocks_np).to(device)
 
-    words, sizes = PL.encode_lanes(blocks, tabs, k=k, L=L, W=W)
-    rwords, rsizes = PL.encode_lanes_ref(blocks, tabs, k=k, L=L, W=W)
-    syms, finals, cur = PL.decode_lanes(words, sizes, tabs.dec, L=L, R=R)
-    rsyms, rfinals, rcur = PL.decode_lanes_ref(words, sizes, tabs.dec, L=L,
-                                               R=R)
+    words, sizes = PL.encode_call(blocks, tabs, k=k, L=L, W=W)
+    rwords, rsizes = PL.encode_call_ref(blocks, tabs, k=k, L=L, W=W)
+    syms, finals, cur = PL.decode_call(words, sizes, tabs.dec, L=L, R=R)
+    rsyms, rfinals, rcur = PL.decode_call_ref(words, sizes, tabs.dec, L=L,
+                                              R=R)
     torch.cuda.synchronize()
     err = max(max_abs_diff(words, rwords), max_abs_diff(sizes, rsizes),
               max_abs_diff(syms, rsyms), max_abs_diff(finals, rfinals),
@@ -281,10 +291,10 @@ def compare_lanes(blocks_np, L, k, device="cuda", time_kernels=False):
            "max_count": int(nt.max()), "symbols": int((counts > 0).sum(1).max())}
     if time_kernels:
         out["encode_ms"], _ = cuda_ms(
-            lambda: PL.encode_lanes(blocks, tabs, k=k, L=L, W=W),
+            lambda: PL.encode_call(blocks, tabs, k=k, L=L, W=W),
             reps=LS.REPS)
         out["decode_ms"], _ = cuda_ms(
-            lambda: PL.decode_lanes(words, sizes, tabs.dec, L=L, R=R),
+            lambda: PL.decode_call(words, sizes, tabs.dec, L=L, R=R),
             reps=LS.REPS)
         out["encode_GBps"] = n * B / out["encode_ms"] / 1e6
         out["decode_GBps"] = n * B / out["decode_ms"] / 1e6
@@ -1082,10 +1092,10 @@ def phase_timing(data):
         inp = LS.shape_inputs(name, data)
         B, k, L, R, W = inp.B, inp.k, inp.L, inp.R, inp.W
         plain = {
-            "encode": lambda: PL.encode_lanes_ref(inp.blocks, inp.tabs, k=k,
-                                                  L=L, W=W),
-            "decode": lambda: PL.decode_lanes_ref(inp.words, inp.sizes,
-                                                  inp.tabs.dec, L=L, R=R)}
+            "encode": lambda: PL.encode_call_ref(inp.blocks, inp.tabs, k=k,
+                                                 L=L, W=W),
+            "decode": lambda: PL.decode_call_ref(inp.words, inp.sizes,
+                                                 inp.tabs.dec, L=L, R=R)}
         got = {kind: LS.run_new(kind, inp) for kind in plain}
         want = {kind: fn() for kind, fn in plain.items()}
         torch.cuda.synchronize()
@@ -1300,6 +1310,155 @@ def layouts_in_turns(inp, rounds: int = 2):
                 lambda lib, t=t, n=name: DH.layout_with(lib, w, s, t, n, L, R),
                 f"L=10 {name}", rounds)
     return out
+
+
+# --- the JAX package's lane entries ------------------------------------------
+
+
+def entry_inputs(name: str, data):
+    """Host numpy inputs of the ``name`` launch shape (``tools.lane_shapes``)
+    as a caller of the JAX package's entries passes them: (B, R, k) symbols,
+    (B, k) last bytes, B ``(table, tt_bits, tt_fs)`` tuples and B packed
+    decode rows from the port's host library."""
+    import numpy as np
+
+    from entropy_coders_tpu_torch import native
+    from entropy_coders_tpu_torch.normalize import normalize_batch
+    from entropy_coders_tpu_torch.ops import pl_coder as PL
+    from entropy_coders_tpu_torch.tools import lane_shapes as LS
+
+    s = LS.SHAPES[name]
+    B, block, k = s["B"], s["block"], s["k"]
+    L = s["L"] if s["L"] is not None else LS.default_log(data, block)
+    blocks = np.resize(data, B * block).reshape(B, block)
+    counts = np.stack([np.bincount(b, minlength=256) for b in blocks])
+    nt, logs = normalize_batch(counts, block, L)
+    check((logs == L).all(), f"{name}: table log raised above {L}")
+    table, tt_bits, tt_fs = native.build_encode_tables(nt, L)
+    R = block // k - 1
+    return dict(name=name, B=B, k=k, L=L, R=R, W=PL.encode_w_bound(R, L),
+                blocks=blocks, syms=blocks[:, : R * k].reshape(B, R, k),
+                init=blocks[:, R * k:],
+                enc_tables=[(table[b], tt_bits[b], tt_fs[b])
+                            for b in range(B)],
+                stacked=(table, tt_bits, tt_fs),
+                packs=list(native.build_decode_tables(nt, L)))
+
+
+def counted(PL, fn, encode: int, decode: int, what: str):
+    """``fn()``, checking that it launched exactly ``encode`` B2 and
+    ``decode`` B1 kernels."""
+    before = (PL.ENCODE_LAUNCHES, PL.DECODE_LAUNCHES)
+    out = fn()
+    moved = (PL.ENCODE_LAUNCHES - before[0], PL.DECODE_LAUNCHES - before[1])
+    check(moved == (encode, decode),
+          f"{what}: launched (B2, B1) = {moved}, expected {(encode, decode)}")
+    return out
+
+
+def phase_lane_entries(data, card: str):
+    """The JAX package's entries ``ops.encode_lanes`` / ``decode_lanes`` on
+    the card at the main path's three launch shapes, host numpy in: the
+    encode equals its plain version on the CPU on one block (``w_act``
+    included) and ``encode_call`` on the same blocks and tables (trimmed
+    the same way), the decode gives the input back, a corrupted lane size
+    raises ValueError, and each call launches one B2 or B1. Each entry's
+    host time and CUDA-event time stand beside those of the
+    ``encode_call`` / ``decode_call`` it wraps on device-resident inputs;
+    the difference is the entry's own work (the numpy inputs' staging in
+    pinned memory and h2d, the table stacking, the block concat, the
+    trim's sync). Returns the rows and the largest difference seen."""
+    import numpy as np
+    import torch
+
+    from entropy_coders_tpu_torch.ops import pl_coder as PL
+    from entropy_coders_tpu_torch.ops.unsigned import to_device, to_numpy
+    from entropy_coders_tpu_torch.tools.bench_data import cuda_ms
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows, worst = {}, 0
+    for name in ("throughput", "parity", "default"):
+        c = entry_inputs(name, data)
+        B, k, L, R, W = c["B"], c["k"], c["L"], c["R"], c["W"]
+
+        def enc(**kw):
+            return PL.encode_lanes(c["syms"], c["init"], c["enc_tables"],
+                                   k=k, L=L, W=W, **kw)
+
+        words, sizes = counted(PL, enc, 1, 0, f"{name} encode_lanes")
+        check(words.device == dev and sizes.device == dev,
+              f"{name}: encode_lanes ran on {words.device}")
+        w_act = min((int(sizes.max()) + 31) // 32 + 1, W)
+        blocks = torch.from_numpy(c["blocks"]).to(dev)
+        tabs = PL.LaneTables(None, *(to_device(t, dev) for t in
+                                     c["stacked"][1:]),
+                             to_device(c["stacked"][0], dev))
+        cw, cs = counted(PL, lambda: PL.encode_call(blocks, tabs, k=k, L=L,
+                                                    W=W), 1, 0,
+                         f"{name} encode_call")
+        err = max(max_abs_diff(words, cw[:, :w_act]), max_abs_diff(sizes, cs))
+        check(words.shape[1] == w_act and err == 0,
+              f"{name}: encode_lanes != encode_call trimmed: {err}")
+        # one block on the card and in the plain version on the CPU
+        one = counted(PL, lambda: PL.encode_lanes(
+            c["syms"][:1], c["init"][:1], c["enc_tables"][:1], k=k, L=L,
+            W=W), 1, 0, f"{name} encode_lanes one block")
+        plain = counted(PL, lambda: PL.encode_lanes(
+            c["syms"][:1], c["init"][:1], c["enc_tables"][:1], k=k, L=L,
+            W=W, device="cpu"), 0, 0, f"{name} plain encode_lanes")
+        check(one[0].shape == plain[0].shape,
+              f"{name}: w_act {one[0].shape} != plain {plain[0].shape}")
+        one_err = max(int(np.abs(to_numpy(a).astype(np.int64)
+                                 - to_numpy(b).astype(np.int64)).max())
+                      for a, b in zip(one, plain))
+        check(one_err == 0, f"{name}: encode_lanes != plain: {one_err}")
+        # decode from read-only host numpy, as ``np.asarray`` of a JAX
+        # array holds the words
+        words_np, sizes_np = to_numpy(words), sizes.cpu().numpy()
+        words_np.setflags(write=False)
+
+        def dec(w=words_np, s=sizes_np):
+            return PL.decode_lanes(w, s, c["packs"], k=k, L=L, R=R)
+
+        syms, finals = counted(PL, dec, 0, 1, f"{name} decode_lanes")
+        got = torch.cat([syms.reshape(B, -1), finals], 1).cpu().numpy()
+        check((got == c["blocks"]).all(), f"{name}: decode_lanes round trip")
+        bad = sizes_np.copy()
+        bad[0, 3] ^= 0x4000  # past anything R rounds can consume
+
+        def corrupt():
+            try:
+                dec(s=bad)
+            except ValueError:
+                return True
+            return False
+
+        check(counted(PL, corrupt, 0, 1, f"{name} corrupt decode_lanes"),
+              f"{name}: a corrupt lane size decoded without ValueError")
+        dec_dev = to_device(np.stack(c["packs"]), dev)
+        times = {}
+        for kind, entry, call in (
+                ("encode", enc, lambda: PL.encode_call(blocks, tabs, k=k, L=L,
+                                                       W=W)),
+                ("decode", dec, lambda: PL.decode_call(words, sizes, dec_dev,
+                                                       L=L, R=R))):
+            t = {"entry_host_ms": host_ms(entry, [dev], runs=5, warmup=1)[0],
+                 "entry_ms": cuda_ms(entry, runs=5, warmup=1)[0],
+                 "call_host_ms": host_ms(call, [dev], runs=5, warmup=1)[0],
+                 "call_ms": cuda_ms(call, runs=5, warmup=1)[0]}
+            t["entry_own_ms"] = t["entry_ms"] - t["call_ms"]
+            times[kind] = t
+        rows[name] = {"B": B, "k": k, "L": L, "R": R, "W": W, "w_act": w_act,
+                      "input_bytes": int(c["blocks"].nbytes),
+                      "words_bytes": int(words_np.nbytes),
+                      "max_abs_err": max(err, one_err),
+                      "launches_a_call": {"encode_lanes": [1, 0],
+                                          "decode_lanes": [0, 1]},
+                      "corrupt_raises": True, **times, "card": card}
+        worst = max(worst, err, one_err)
+        emit(f"lane_entries_{name}", **rows[name])
+        del c, words, sizes, cw, cs, blocks, tabs, one, plain, syms, finals
+    return rows, worst
 
 
 # --- the multi-device path ----------------------------------------------------
@@ -1625,8 +1784,8 @@ def phase_ring(data):
                                        for b in blocks_np]), BLOCK, L)
     check((l2 == L).all(), f"table log raised to {l2}")
     W = PL.encode_w_bound(BLOCK // k - 1, L)
-    words, _ = PL.encode_lanes(blocks, PL.tables_from_norm(nt, L, dev), k=k,
-                               L=L, W=W)
+    words, _ = PL.encode_call(blocks, PL.tables_from_norm(nt, L, dev), k=k,
+                              L=L, W=W)
     mesh = (dev,) * 8
     shards = list(words.unbind(0))
     gathered = R.ring_all_gather(words, mesh)
@@ -1917,12 +2076,13 @@ def multihost_worker(port: int, num: int, rank: int) -> int:
     return 0
 
 
-def run_single(T, PL, gg, data):
+def run_single(T, PL, gg, data, card):
     """The single-device phases; returns the main path's launch counts,
-    B1's and B2's largest difference from their plain versions, the
-    timings at the main path's launch shapes, D1-D3's largest differences
-    (phase ``device_host`` and the timings) and D3's timings
-    (``device_host.TABLE_SHAPES``)."""
+    B1's and B2's largest difference from their plain versions (phases
+    ``kernels``, ``timing`` and ``lane_entries``), the timings at the main
+    path's launch shapes (with the entries' beside them, ``entries``),
+    D1-D3's largest differences (phase ``device_host`` and the timings)
+    and D3's timings (``device_host.TABLE_SHAPES``)."""
     from entropy_coders_tpu_torch.ops import device_repack as DR
     from entropy_coders_tpu_torch.ops import tables as TB
 
@@ -1973,6 +2133,10 @@ def run_single(T, PL, gg, data):
     dh_err["tables"] = max([dh_err["tables"]]
                            + [r["max_abs_err"]
                               for r in timing["tables"].values()])
+    # the JAX package's entries: a second route to B1 and B2, after the
+    # main path's counts were read
+    timing["entries"], entries_err = phase_lane_entries(data, card)
+    worst = max(worst, entries_err)
     return launches, worst, timing, dh_err
 
 
@@ -2108,7 +2272,10 @@ def print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,
     its largest difference from its plain version, its times and its
     bound. B1 and B2 are timed at the throughput launch shape (B=4 blocks
     of 16 MiB), each launch shape beside it, B1 also in turns with the
-    parent's (``old_ms``, with ``build/parent``). B3 at n=8 virtual ranks,
+    parent's (``old_ms``, with ``build/parent``); ``entries`` gives, at
+    each launch shape, the JAX package's entry that reaches the kernel
+    (``decode_lanes`` / ``encode_lanes``, host numpy in) beside the
+    wrapper call on device-resident inputs. B3 at n=8 virtual ranks,
     its bound the function's bytes, (n + n*n) * chunk; its ``library_ms``
     is NCCL's ``all_gather_into_tensor`` across the cards of the peer
     full-width case, by the slowest rank's CUDA events, with its host clock
@@ -2135,11 +2302,14 @@ def print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,
                    launches["decode"], worst, shapes)
     b1["old_ms"] = shapes["throughput"]["decode"].get("old_ms")
     b1["sass_vs_parent"] = timing.get("b1_sass_diff")
+    b2 = _lane_row("pl_encode (B2)", "encode", f"{src}/pl_encode.cu",
+                   "entropy_coders_tpu/ops/pl_coder.py:1075",
+                   launches["encode"], worst, shapes)
+    for row, kind in ((b1, "decode"), (b2, "encode")):
+        row["entries"] = {s: r[kind] for s, r in timing["entries"].items()}
     print(json.dumps({"kernels": [
         b1,
-        _lane_row("pl_encode (B2)", "encode", f"{src}/pl_encode.cu",
-                  "entropy_coders_tpu/ops/pl_coder.py:1075",
-                  launches["encode"], worst, shapes),
+        b2,
         {"name": "ring_all_gather (B3)", "route": "cuda",
          "source": f"{src}/ring.cu",
          "replaces": "entropy_coders_tpu/parallel/rdma.py:46",
@@ -2196,10 +2366,10 @@ def main() -> int:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     try:
-        phase_env()
+        card = phase_env()
         gg = load_testdata()
         data = gg.gen_sequence(0.2, BENCH_SIZE, BENCH_SEED)
-        run_all(T, PL, R, gg, data)
+        run_all(T, PL, R, gg, data, card)
     except Exception:  # report any failing phase, print no result
         traceback.print_exc()
         return 1
@@ -2209,9 +2379,9 @@ def main() -> int:
     return 0
 
 
-def run_all(T, PL, R, gg, data):
+def run_all(T, PL, R, gg, data, card):
     """Every phase, then the kernels line."""
-    launches, worst, timing, dh_err = run_single(T, PL, gg, data)
+    launches, worst, timing, dh_err = run_single(T, PL, gg, data, card)
     layouts = phase_layouts(data)
     ring_err, ring_full, ring_peer, par = run_parallel(T, PL, R, data)
     print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,

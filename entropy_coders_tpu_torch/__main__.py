@@ -96,6 +96,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     from . import frame as F
+    from .ops.unsigned import resolve_device
 
     if args.cmd == "stat":
         from .utils import frame_stats
@@ -110,7 +111,7 @@ def main(argv=None) -> int:
               f"overhead={st.overhead:.4%}")
         return 0
 
-    device = F._device(_platform())
+    device = resolve_device(_platform())
     if args.cmd == "compress":
         from .stream import compress_file
 

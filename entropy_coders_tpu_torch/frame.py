@@ -53,7 +53,7 @@ from .ops import device_repack as DR
 from .ops import pl_coder as PL
 from .ops.coder import blocks_to_syms, decode_core, encode_core, encode_layout
 from .ops.histogram import histogram_blocks
-from .ops.unsigned import to_device
+from .ops.unsigned import resolve_device, to_device
 
 MAGIC = b"FSET"
 VERSION = 2
@@ -92,22 +92,10 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' but CUDA is not available; pass "
-                           "device='cpu' for the plain PyTorch versions")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def _mesh_devices(mesh) -> tuple[torch.device, ...]:
     """A mesh (devices, one per rank; a device may repeat) checked as
-    ``_device`` checks one device: non-empty and of one device type."""
-    mesh = tuple(_device(d) for d in mesh)
+    ``resolve_device`` checks one device: non-empty and of one device type."""
+    mesh = tuple(resolve_device(d) for d in mesh)
     if not mesh:
         raise ValueError("empty mesh")
     if len({d.type for d in mesh}) > 1:
@@ -120,7 +108,7 @@ def _mesh(device, sharding) -> tuple[torch.device, ...]:
     sharding, ``device`` (default ``"cuda"``) alone. A ``device`` given
     beside a sharding must name the mesh's devices."""
     if sharding is None:
-        return (_device("cuda" if device is None else device),)
+        return (resolve_device("cuda" if device is None else device),)
     mesh = _mesh_devices(sharding.mesh)
     if device is not None:
         want = torch.device(device)

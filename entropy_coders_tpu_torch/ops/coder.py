@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .unsigned import as_int64, to_device
+from .unsigned import as_int64, resolve_device, to_device
 
 __all__ = ["blocks_to_syms", "decode_core", "decode_interleaved",
            "encode_core", "encode_interleaved", "encode_layout"]
@@ -232,9 +232,7 @@ def encode_interleaved(data, k: int, enc_table, table_log: int, core=None,
     ``entropy_coders_tpu.ops.coder.encode_interleaved``. ``core``
     substitutes ``encode_core`` (``utils.checked``); ``device`` is where it
     runs (default ``"cuda"``, which raises when CUDA is unavailable)."""
-    from ..frame import _device
-
-    dev = _device("cuda" if device is None else device)
+    dev = resolve_device("cuda" if device is None else device)
     data = np.asarray(data, dtype=np.uint8)
     m, R, valid, finish_slots, W = encode_layout(len(data), k)
     syms, init_syms = blocks_to_syms(data[None], m, R, k)
@@ -261,9 +259,7 @@ def decode_interleaved(payload, k: int, dec_table, table_log: int,
     the decode does not finish within it. ``core`` substitutes
     ``decode_core`` (``utils.checked``); ``device`` as in
     ``encode_interleaved``."""
-    from ..frame import _device
-
-    dev = _device("cuda" if device is None else device)
+    dev = resolve_device("cuda" if device is None else device)
     buf = np.frombuffer(payload, dtype=np.uint8)
     nz = np.flatnonzero(buf)
     if nz.size == 0:

@@ -325,7 +325,7 @@ def encode_lanes_merged(blocks, norm_tables, *, k: int, L: int, W: int,
     dev = blocks.device
     if tables is None:
         tables = PL.tables_from_norm(norm_tables, L, dev, half="encode")
-    words, sizes = PL.encode_lanes(blocks, tables, k=k, L=L, W=W)
+    words, sizes = PL.encode_call(blocks, tables, k=k, L=L, W=W)
     flat, offs = lane_merge_device(words, sizes, pack_bits=pack_bits)
     if dev.type != "cuda":  # the plain versions have run
         out = (flat[: int(offs[-1])].numpy(), offs.numpy(), sizes.numpy())

@@ -4,13 +4,19 @@ The JAX package counts with XLA code, not a Pallas kernel (a scatter on CPU,
 an eq-scan over the 256 symbols on the TPU), so the port's counterpart is
 plain PyTorch: one ``bincount`` over the block bytes offset by 256 * row,
 in chunks of rows so the int64 index tensor stays bounded.
+
+Counts are int64, where the JAX package's are uint32: ``bincount`` counts
+in int64, and torch has few operations on uint32 (``ops.unsigned``). The
+values are the same.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..constants import ALPHABET
+from .unsigned import entry_device, entry_tensor
 
 _CHUNK_BYTES = 1 << 24  # bytes of input per bincount (128 MiB of int64 index)
 
@@ -29,3 +35,16 @@ def histogram_blocks(blocks: torch.Tensor) -> torch.Tensor:
         counts[b0 : b0 + nb] = torch.bincount(
             idx, minlength=nb * ALPHABET).view(nb, ALPHABET)
     return counts
+
+
+def histogram_u8(data, *, device=None) -> torch.Tensor:
+    """(n,) uint8 -> (256,) int64 counts (the JAX package's
+    ``ops.histogram.histogram_u8``), on ``device``: as the lane entries
+    take it (``unsigned.entry_device``), the tensor's device when None, and
+    ``"cuda"`` for a numpy array."""
+    dev = entry_device(device, data)
+    data = entry_tensor(data, np.uint8, dev)
+    if data.dim() != 1 or data.dtype != torch.uint8:
+        raise ValueError(f"data must be (n,) uint8, got {tuple(data.shape)} "
+                         f"{data.dtype}")
+    return histogram_blocks(data[None])[0]

@@ -7,19 +7,27 @@ stack, the initial state folding the lane's last byte, the final state in
 table_log bits). Bit j of a lane's stream lives in word j >> 5 at position
 j & 31 of the lane's word column, as in the JAX package.
 
-Two kernels carry the path, each behind a wrapper that checks its inputs:
+Two kernels carry the path, each behind a wrapper that checks its inputs
+(named after the JAX package's ``_decode_call`` / ``_encode_call``, which
+launch the Pallas kernels):
 
-* ``decode_lanes`` -> B1, ``csrc/pl_decode.cu`` (replaces ``_decode_kernel``);
-* ``encode_lanes`` -> B2, ``csrc/pl_encode.cu`` (replaces ``_encode_kernel``).
+* ``decode_call`` -> B1, ``csrc/pl_decode.cu`` (replaces ``_decode_kernel``);
+* ``encode_call`` -> B2, ``csrc/pl_encode.cu`` (replaces ``_encode_kernel``).
 
 A wrapper launches its kernel for CUDA tensors and raises if it cannot. For
-CPU tensors it runs the plain PyTorch version (``decode_lanes_ref`` /
-``encode_lanes_ref``): vectorised over (B, k), a Python loop over rounds,
+CPU tensors it runs the plain PyTorch version (``decode_call_ref`` /
+``encode_call_ref``): vectorised over (B, k), a Python loop over rounds,
 int64 throughout. The plain versions are the oracle the kernels are held
 against on the card. ``DECODE_LAUNCHES``/``ENCODE_LAUNCHES`` count kernel
 launches, so a run can show that its path went through the kernels;
 ``DECODE_BLOCKS`` counts the blocks B1 decoded, so a range decode can show
 that it touched only its blocks.
+
+``decode_lanes``/``encode_lanes``/``encode_w_bound`` are the JAX package's
+public lane entries with its signatures (less its TPU knobs ``interpret``,
+``mesh``, ``e_rounds`` and ``small_alpha``, which change no byte): prebuilt
+tables in the ``spec.fse`` layout, numpy arrays or tensors in, one B1 or B2
+launch each.
 
 ``encode_lanes_norm``/``decode_lanes_norm`` take ``lazy=True``: the kernel
 is launched and its d2h queued on a side stream, and a ``collect`` closure
@@ -50,19 +58,22 @@ from torch.profiler import record_function
 from .. import native
 from ..kernels.launch import check as _check, launch as _launch
 from . import tables as TB
-from .unsigned import as_int64, int64_to_u32, signed_view, to_device, to_numpy
+from .unsigned import (as_int64, entry_device, entry_tensor, int64_to_u32,
+                       signed_view, to_device, to_numpy)
 
 __all__ = [
     "DECODE_BLOCKS",
     "DECODE_LAUNCHES",
     "ENCODE_LAUNCHES",
     "LaneTables",
+    "decode_call",
+    "decode_call_ref",
     "decode_lanes",
     "decode_lanes_norm",
-    "decode_lanes_ref",
+    "encode_call",
+    "encode_call_ref",
     "encode_lanes",
     "encode_lanes_norm",
-    "encode_lanes_ref",
     "encode_w_bound",
     "lane_config",
     "lane_merge",
@@ -216,9 +227,9 @@ def _read_bits(words: torch.Tensor, c: torch.Tensor, nb) -> torch.Tensor:
     return v & ((torch.ones_like(c) << nb) - 1)
 
 
-def decode_lanes_ref(words, sizes, dec, *, L: int, R: int):
+def decode_call_ref(words, sizes, dec, *, L: int, R: int):
     """Plain PyTorch version of B1 (same inputs and outputs as
-    ``decode_lanes``), vectorised over (B, k), a loop over R rounds."""
+    ``decode_call``), vectorised over (B, k), a loop over R rounds."""
     B, W, k = words.shape
     w = as_int64(words)
     tab = as_int64(dec)
@@ -236,7 +247,7 @@ def decode_lanes_ref(words, sizes, dec, *, L: int, R: int):
     return syms, finals, c.to(torch.int32)
 
 
-def decode_lanes(words, sizes, dec, *, L: int, R: int):
+def decode_call(words, sizes, dec, *, L: int, R: int):
     """Decode B blocks of k per-lane streams (B1's wrapper).
 
     words: (B, W, k) uint32 lane words (rows past the streams zero).
@@ -246,7 +257,7 @@ def decode_lanes(words, sizes, dec, *, L: int, R: int):
     int32): every cursor of a well-formed stream ends at 0.
 
     CUDA tensors launch B1 (and raise if the launch fails); CPU tensors run
-    ``decode_lanes_ref``."""
+    ``decode_call_ref``."""
     global DECODE_BLOCKS, DECODE_LAUNCHES
     if words.dim() != 3:
         raise ValueError(f"words must be (B, W, k), got {tuple(words.shape)}")
@@ -260,7 +271,7 @@ def decode_lanes(words, sizes, dec, *, L: int, R: int):
     _check(sizes, "sizes", (B, k), torch.int32, dev)
     _check(dec, "dec", (B, 1 << L), torch.uint32, dev)
     if dev.type == "cpu":
-        return decode_lanes_ref(words, sizes, dec, L=L, R=R)
+        return decode_call_ref(words, sizes, dec, L=L, R=R)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check_index_range(W_k=W * k, R_k=R * k)
@@ -359,7 +370,7 @@ def decode_lanes_norm(words, sizes, norm_tables, *, k: int, L: int, R: int,
     if tables is None:
         tables = tables_from_norm(norm_tables, L, words.device, host_tables,
                                   half="decode")
-    syms, finals, cursors = decode_lanes(words, sizes, tables.dec, L=L, R=R)
+    syms, finals, cursors = decode_call(words, sizes, tables.dec, L=L, R=R)
     if not lazy:
         if bool((cursors != 0).any()):
             raise ValueError("corrupt stream: lane cursor not drained")
@@ -391,9 +402,9 @@ def encode_w_bound(R: int, L: int) -> int:
     return _cdiv(_cdiv(R * L + L, 32) + 2, 8) * 8
 
 
-def encode_lanes_ref(blocks, tables: LaneTables, *, k: int, L: int, W: int):
+def encode_call_ref(blocks, tables: LaneTables, *, k: int, L: int, W: int):
     """Plain PyTorch version of B2 (same inputs and outputs as
-    ``encode_lanes``), vectorised over (B, k), a loop over R rounds. Bits
+    ``encode_call``), vectorised over (B, k), a loop over R rounds. Bits
     go into the int64 word array by add: every bit position is written
     once, so add is exact."""
     B, n = blocks.shape
@@ -435,7 +446,7 @@ def encode_lanes_ref(blocks, tables: LaneTables, *, k: int, L: int, W: int):
     return int64_to_u32(words), (c + L).to(torch.int32)
 
 
-def encode_lanes(blocks, tables: LaneTables, *, k: int, L: int, W: int):
+def encode_call(blocks, tables: LaneTables, *, k: int, L: int, W: int):
     """Encode B blocks of k per-lane streams (B2's wrapper).
 
     blocks: (B, (R+1)*k) uint8 raw block bytes; row r of lane i is byte
@@ -446,7 +457,7 @@ def encode_lanes(blocks, tables: LaneTables, *, k: int, L: int, W: int):
     Returns (words (B, W, k) uint32, sizes (B, k) int32 bit counts).
 
     CUDA tensors launch B2 (and raise if the launch fails); CPU tensors run
-    ``encode_lanes_ref``."""
+    ``encode_call_ref``."""
     global ENCODE_LAUNCHES
     if blocks.dim() != 2:
         raise ValueError(f"blocks must be (B, n), got {tuple(blocks.shape)}")
@@ -465,7 +476,7 @@ def encode_lanes(blocks, tables: LaneTables, *, k: int, L: int, W: int):
     _check(tables.tt_fs, "tt_fs", (B, 256), torch.int32, dev)
     _check(tables.next_state, "next_state", (B, 1 << L), torch.uint16, dev)
     if dev.type == "cpu":
-        return encode_lanes_ref(blocks, tables, k=k, L=L, W=W)
+        return encode_call_ref(blocks, tables, k=k, L=L, W=W)
     # B2 keeps a lane's next word as an unsigned 32-bit byte offset
     _check_index_range(n_plus_k=n + k)
     _check_index_range(word_bytes=4 * W * k, bound=1 << 32)
@@ -529,7 +540,7 @@ def encode_lanes_norm(blocks, norm_tables, *, k: int, L: int, W: int,
     if tables is None:
         tables = tables_from_norm(norm_tables, L, dev, host_tables,
                                   half="encode")
-    words, sizes = encode_lanes(blocks, tables, k=k, L=L, W=W)
+    words, sizes = encode_call(blocks, tables, k=k, L=L, W=W)
     if not lazy:
         if B == 0:
             return words[:, :0], sizes
@@ -550,6 +561,101 @@ def encode_lanes_norm(blocks, norm_tables, *, k: int, L: int, W: int,
         return to_numpy(words_h), s
 
     return collect
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's public lane entries (prebuilt tables, numpy or tensors)
+# ---------------------------------------------------------------------------
+
+
+def _entry_rows(rows, dtype, dev: torch.device, width: int) -> torch.Tensor:
+    """(B, width) rows on ``dev`` from one 2-D array or tensor, or from a
+    sequence of B 1-D rows (the JAX entries index ``tables[b]``)."""
+    if isinstance(rows, (np.ndarray, torch.Tensor)):
+        return entry_tensor(rows, dtype, dev)
+    rows = list(rows)
+    if any(isinstance(r, torch.Tensor) for r in rows):
+        t = torch.stack([signed_view(entry_tensor(r, dtype, dev))
+                         for r in rows])
+        return t.view(rows[0].dtype)
+    return entry_tensor(np.stack([np.asarray(r, dtype) for r in rows]) if rows
+                        else np.zeros((0, width), dtype), dtype, dev)
+
+
+def _enc_parts(enc_tables) -> tuple:
+    """(table, tt_bits, tt_fs) of ``encode_lanes``' ``enc_tables``: each a
+    stacked 2-D array or tensor, or a tuple of B rows."""
+    if len(enc_tables) == 3 and all(
+            isinstance(t, (np.ndarray, torch.Tensor)) and t.ndim == 2
+            for t in enc_tables):
+        return tuple(enc_tables)
+    return tuple(zip(*enc_tables)) or ((), (), ())
+
+
+def decode_lanes(words, sizes, packed_tables, *, k: int, L: int, R: int,
+                 device=None):
+    """Decode B blocks of k per-lane streams (the JAX package's
+    ``ops.decode_lanes``, ``pl_coder.py:1004``).
+
+    words: (B, W, k) uint32 lane words; rows past a lane's stream are zero
+      and no guard rows are needed (B1 and its plain version read rows
+      outside [0, W) as zero; the JAX entry pads W to a multiple of 8 for
+      the TPU's layout, which changes no byte).
+    sizes: (B, k) int32 per-lane stream lengths in bits.
+    packed_tables: (B, 2^L) uint32 decode entries (``sym << 24 | nb << 16
+      | base``, the ``spec.fse`` ``DecodeTable.packed`` layout), or a
+      sequence of B such rows.
+    device: where to run (``unsigned.entry_device``): a CUDA device launches B1
+      once, ``"cpu"`` runs its plain version.
+    Returns (syms (B, R, k) uint8, finals (B, k) uint8) on that device;
+    raises ValueError on a corrupt stream (any lane cursor not exactly
+    drained) and on a bad shape."""
+    dev = entry_device(device, words, sizes, packed_tables)
+    words = entry_tensor(words, np.uint32, dev)
+    sizes = entry_tensor(sizes, np.int32, dev)
+    dec = _entry_rows(packed_tables, np.uint32, dev, 1 << L)
+    return decode_lanes_norm(words, sizes, None, k=k, L=L, R=R,
+                             tables=LaneTables(dec, None, None, None))
+
+
+def encode_lanes(syms, init_syms, enc_tables, *, k: int, L: int, W: int,
+                 device=None):
+    """Encode B blocks of k per-lane streams (the JAX package's
+    ``ops.encode_lanes``, ``pl_coder.py:1406``).
+
+    syms: (B, R, k) uint8, R >= 1: round r, lane i is byte r*k + i.
+    init_syms: (B, k) uint8: each lane's last byte (folded into the
+      initial state).
+    enc_tables: a sequence of B ``(table, tt_bits, tt_fs)`` tuples in the
+      ``spec.fse`` layout (``table`` (2^L,) uint16, ``tt_bits`` (256,)
+      uint32, ``tt_fs`` (256,) int32), or those three stacked as (B, .)
+      arrays or tensors.
+    W: word rows to allocate (``encode_w_bound(R, L)``); fewer than
+      (R+1)*L bits a lane raise ValueError.
+    device: as in ``decode_lanes``: one B2 launch on CUDA, its plain
+      version on the CPU.
+    Returns (words (B, w_act, k) uint32, sizes (B, k) int32) on that
+    device, with the JAX entry's trim ``w_act = min((max(sizes) + 31) //
+    32 + 1, W)``; words past each lane's stream are zero. The block B2
+    reads, ``syms`` then ``init_syms`` a block, is put together on the
+    device."""
+    parts = _enc_parts(enc_tables)
+    dev = entry_device(device, syms, init_syms, parts)
+    syms = entry_tensor(syms, np.uint8, dev)
+    init_syms = entry_tensor(init_syms, np.uint8, dev)
+    if syms.dim() != 3 or syms.shape[2] != k:
+        raise ValueError(f"syms has shape {tuple(syms.shape)}, want "
+                         f"(B, R, {k})")
+    B, R = syms.shape[:2]
+    _check(init_syms, "init_syms", (B, k), torch.uint8, dev)
+    table, tt_bits, tt_fs = (
+        _entry_rows(part, dtype, dev, width) for part, dtype, width in
+        zip(parts, (np.uint16, np.uint32, np.int32), (1 << L, 256, 256)))
+    blocks = torch.cat([syms.reshape(B, R * k), init_syms], 1)
+    words, sizes = encode_call(blocks, LaneTables(None, tt_bits, tt_fs, table),
+                               k=k, L=L, W=W)
+    w_act = min((int(sizes.max()) + 31) // 32 + 1, W) if B else 0
+    return signed_view(words[:, :w_act]).contiguous().view(torch.uint32), sizes
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Unsigned integers across numpy, PyTorch and the card.
+"""Unsigned integers across numpy, PyTorch and the card, and where a call
+runs.
 
 The wire format and the tables are unsigned (u32 stream words, u32 decode
 entries, u16 next states). PyTorch has ``torch.uint32``/``torch.uint16``
@@ -6,9 +7,16 @@ but few operations on them, so tensors of those types only ever move as
 views of the signed type of the same width: every copy, transfer and
 comparison runs on the signed view, and arithmetic widens to int64 first
 (torch's ``>>`` on int32 is arithmetic, the wire's shifts are logical).
+
+Every entry point runs on ``"cuda"`` unless its caller names another
+device (``resolve_device``); the ``ops`` entries that take numpy arrays or
+tensors follow their tensors' device (``entry_device``) and move numpy
+inputs there through pinned memory (``entry_tensor``).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -20,20 +28,80 @@ _TORCH_UNSIGNED = {np.dtype(np.uint32): torch.uint32,
                    np.dtype(np.uint16): torch.uint16}
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with its index: CUDA raises where
+    it is not available (there is no fallback to the CPU), and only CUDA
+    and the CPU (the plain versions) are taken."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but CUDA is not available; pass "
+                           "device='cpu' for the plain PyTorch versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def to_device(arr: np.ndarray, device, non_blocking: bool = False) -> torch.Tensor:
     """numpy array -> tensor on ``device``, u32/u16 kept as their type.
 
     ``non_blocking`` stages a copy for a CUDA device in pinned host memory
     and queues the h2d on the current stream without waiting for the work
-    queued before it (a blocking h2d synchronises the stream)."""
-    arr = np.ascontiguousarray(arr)
+    queued before it (a blocking h2d synchronises the stream). The staging
+    copy is torch's (as ``Tensor.pin_memory`` makes it) from ``arr``'s own
+    strides, so a strided or read-only array costs no other host copy."""
+    arr = np.asarray(arr)
     signed = _NP_SIGNED.get(arr.dtype)
-    t = torch.from_numpy(arr if signed is None else arr.view(signed))
+    src = arr if signed is None else arr.view(signed)
     if non_blocking and torch.device(device).type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
+        if any(s < 0 for s in src.strides):  # torch takes no negative stride
+            src = np.ascontiguousarray(src)
+        with warnings.catch_warnings():
+            # torch warns of a read-only array; this view is only read
+            warnings.simplefilter("ignore", UserWarning)
+            host = torch.from_numpy(src)
+        t = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        t = t.copy_(host).to(device, non_blocking=True)
     else:
-        t = t.to(device)
+        t = torch.from_numpy(np.ascontiguousarray(src)).to(device)
     return t if signed is None else t.view(_TORCH_UNSIGNED[arr.dtype])
+
+
+def _tensors(xs):
+    """The tensors among ``xs``, inside lists and tuples too."""
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, (list, tuple)):
+            yield from _tensors(x)
+
+
+def entry_device(device, *inputs) -> torch.device:
+    """Where an ``ops`` entry runs: ``device``, or when it is None the
+    device of the tensors among ``inputs`` (they must agree), and
+    ``"cuda"`` when all are numpy (``resolve_device``)."""
+    if device is None:
+        devs = {x.device for x in _tensors(inputs)}
+        if len(devs) > 1:
+            raise ValueError("inputs lie on several devices: "
+                             f"{sorted(map(str, devs))}; pass device=")
+        device = devs.pop() if devs else "cuda"
+    return resolve_device(device)
+
+
+def entry_tensor(x, dtype, dev: torch.device) -> torch.Tensor:
+    """A numpy array (cast to numpy ``dtype``, as the JAX entries cast) or
+    a tensor (kept as it is: the wrappers reject a wrong dtype) as a
+    contiguous tensor on ``dev``. A numpy array crosses to the card through
+    pinned memory; on the CPU a read-only one (``np.asarray`` of a JAX
+    array) is copied, where a writable one is shared."""
+    if isinstance(x, torch.Tensor):
+        return signed_view(x).to(dev).contiguous().view(x.dtype)
+    arr = np.asarray(x, dtype)
+    if dev.type == "cpu" and not arr.flags.writeable and arr.flags.c_contiguous:
+        arr = arr.copy()
+    return to_device(arr, dev, non_blocking=True)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

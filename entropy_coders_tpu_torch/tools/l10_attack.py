@@ -99,12 +99,12 @@ def run_layouts(inp: LaneInputs, layouts=H.LAYOUTS) -> dict:
     want = torch.from_numpy(inp.data).to(dev).reshape(B, R + 1, k)
     tag = f"L={L} B={B}"
 
-    base = PL.decode_lanes(words, sizes, dec, L=L, R=R)
+    base = PL.decode_call(words, sizes, dec, L=L, R=R)
     _require(not bool(base[2].any()), f"{tag} base: a cursor did not drain")
     _require(torch.equal(base[0], want[:, :R])
              and torch.equal(base[1], want[:, R]),
              f"{tag} base: decoded bytes differ from the input")
-    calls = {"base": (lambda: PL.decode_lanes(words, sizes, dec, L=L, R=R),
+    calls = {"base": (lambda: PL.decode_call(words, sizes, dec, L=L, R=R),
                       H.table_bytes("flat", L), None)}
     out, skipped = {}, {}
     for name in layouts:

@@ -1,7 +1,7 @@
 """Per-lane decode with a pluggable table entry format (kernels B4/B5).
 
 Counterpart of the JAX package's ``tools/l10_attack_harness.py``: B1's lane
-decode (``ops.pl_coder.decode_lanes``) with the table lookup made pluggable,
+decode (``ops.pl_coder.decode_call``) with the table lookup made pluggable,
 so that table layouts can be measured without touching B1. On the TPU an
 ``entry_fn(tbl, states, S, L) -> (nb, base, sym)`` picked the layout of the
 gather rows; here the layout picks how the block's table is stored in shared
@@ -172,7 +172,7 @@ def decode_lanes_layout_ref(words, sizes, table, *, layout: str, L: int,
                             R: int):
     """Plain PyTorch version of the layout kernel (same inputs and outputs
     as ``decode_lanes_layout``), vectorised over (B, k), a loop over R
-    rounds, int64 throughout (``ops.pl_coder.decode_lanes_ref`` with the
+    rounds, int64 throughout (``ops.pl_coder.decode_call_ref`` with the
     unpack step of ``layout``)."""
     B, W, k = words.shape
     w = as_int64(words)
@@ -198,7 +198,7 @@ def decode_lanes_layout(words, sizes, table, *, layout: str, L: int, R: int):
     sizes: (B, k) int32 per-lane stream lengths in bits.
     table: ``layout_tables(dec, L, layout)``, a tuple of (B, 2^L) planes.
     Returns (syms (B, R, k) uint8, finals (B, k) uint8, cursors (B, k)
-    int32), as ``ops.pl_coder.decode_lanes``; ``nosym``'s symbols are
+    int32), as ``ops.pl_coder.decode_call``; ``nosym``'s symbols are
     wrong by design.
 
     CUDA tensors launch the kernel (and raise if the launch fails); CPU

@@ -136,7 +136,7 @@ def launch_inputs(name: str, B: int, block: int, k: int, L: int,
     W = PL.encode_w_bound(R, L)
     tabs = PL.tables_from_norm(nt, L, device)
     blocks = torch.from_numpy(blocks_np).to(device)
-    words, sizes = PL.encode_lanes(blocks, tabs, k=k, L=L, W=W)
+    words, sizes = PL.encode_call(blocks, tabs, k=k, L=L, W=W)
     return ShapeInputs(name, blocks, tabs, words, sizes, B, k, L, R, W)
 
 
@@ -211,13 +211,13 @@ def alone_ns(kind: str, L: int, device="cuda", R: int = 8191) -> float:
     W = PL.encode_w_bound(R, L)
     tabs = PL.tables_from_norm(nt, L, device)
     blocks = torch.from_numpy(blocks_np).to(device)
-    words, sizes = PL.encode_lanes(blocks, tabs, k=k, L=L, W=W)
+    words, sizes = PL.encode_call(blocks, tabs, k=k, L=L, W=W)
     if kind == "encode":
-        ms, _ = cuda_ms(lambda: PL.encode_lanes(blocks, tabs, k=k, L=L, W=W),
+        ms, _ = cuda_ms(lambda: PL.encode_call(blocks, tabs, k=k, L=L, W=W),
                         reps=REPS)
     else:
-        ms, _ = cuda_ms(lambda: PL.decode_lanes(words, sizes, tabs.dec, L=L,
-                                                R=R), reps=REPS)
+        ms, _ = cuda_ms(lambda: PL.decode_call(words, sizes, tabs.dec, L=L,
+                                               R=R), reps=REPS)
     return ms * 1e6 / R
 
 
@@ -240,8 +240,8 @@ def load_sweep(data: np.ndarray, name: str = "throughput",
 
 def run_new(kind: str, inp: ShapeInputs):
     if kind == "encode":
-        return PL.encode_lanes(inp.blocks, inp.tabs, k=inp.k, L=inp.L, W=inp.W)
-    return PL.decode_lanes(inp.words, inp.sizes, inp.tabs.dec, L=inp.L, R=inp.R)
+        return PL.encode_call(inp.blocks, inp.tabs, k=inp.k, L=inp.L, W=inp.W)
+    return PL.decode_call(inp.words, inp.sizes, inp.tabs.dec, L=inp.L, R=inp.R)
 
 
 # --- another commit's kernels, for timing in turns -----------------------------

@@ -164,13 +164,13 @@ def test_load_leaf_decodes_only_its_blocks(tmp_path, monkeypatch):
     p = tmp_path / "c.fsck"
     C.save_pytree(p, sd, device="cpu", **KW)
     decoded = []
-    real = PL.decode_lanes
+    real = PL.decode_call
 
     def counting(words, *a, **kw):
         decoded.append(words.shape[0])
         return real(words, *a, **kw)
 
-    monkeypatch.setattr(PL, "decode_lanes", counting)
+    monkeypatch.setattr(PL, "decode_call", counting)
     with C.Checkpoint(p, device="cpu") as ck:
         m = ck.leaf_meta("layer2.weight")
         got = ck.load_leaf("layer2.weight")

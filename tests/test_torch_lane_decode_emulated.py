@@ -10,7 +10,7 @@ lanes, R <= 64 rounds: one or two output tiles, the second partial.
 
 Each of the five formats (flat, split, upack, fused, nosym) is held against
 the layout kernel's plain version (``decode_lanes_layout_ref``), and flat,
-B1's own format, against B1's plain version (``PL.decode_lanes_ref``), on
+B1's own format, against B1's plain version (``PL.decode_call_ref``), on
 streams the port's encoder wrote at table logs 5..15 (as far as a format
 goes), both refill groups, and with one lane's size corrupted past what its
 rounds consume (the cursor goes negative; rows outside the words read as
@@ -165,7 +165,7 @@ def test_emulated_layout_equals_plain(emu, layout, L, R, corrupt):
         assert (g == w.numpy()).all(), name
     assert bool(got[2][0, 3] != 0) == corrupt
     if layout == "flat":  # B1 itself
-        ref = PL.decode_lanes_ref(words, sizes, dec, L=L, R=R)
+        ref = PL.decode_call_ref(words, sizes, dec, L=L, R=R)
         for name, g, w in zip(("syms", "finals", "cursors"), got, ref):
             assert (g == w.numpy()).all(), f"{name} != B1's plain version"
 
@@ -176,7 +176,7 @@ def test_emulated_flat_both_refill_groups(emu, RF):
     the same streams."""
     words, sizes, dec, _ = lane_case(9, 9, 64)
     got = run(emu, "flat", words, sizes, (dec,), 9, 64, RF)
-    ref = PL.decode_lanes_ref(words, sizes, dec, L=9, R=64)
+    ref = PL.decode_call_ref(words, sizes, dec, L=9, R=64)
     for g, w in zip(got, ref):
         assert (g == w.numpy()).all()
 

@@ -96,7 +96,7 @@ def test_index_range_guard(extent):
 
 
 def _meta_encode(k, R, W, L=5):
-    """``encode_lanes`` on tensors of the meta device (no data): the
+    """``encode_call`` on tensors of the meta device (no data): the
     wrapper's checks run as for a CUDA tensor, up to the launch."""
     meta = torch.device("meta")
     blocks = torch.empty((1, (R + 1) * k), dtype=torch.uint8, device=meta)
@@ -105,7 +105,7 @@ def _meta_encode(k, R, W, L=5):
         torch.empty((1, 256), dtype=torch.uint32, device=meta),
         torch.empty((1, 256), dtype=torch.int32, device=meta),
         torch.empty((1, 1 << L), dtype=torch.uint16, device=meta))
-    return PL.encode_lanes(blocks, tabs, k=k, L=L, W=W)
+    return PL.encode_call(blocks, tabs, k=k, L=L, W=W)
 
 
 @pytest.mark.parametrize("W", [8, 16])

@@ -3,7 +3,8 @@ entropy_coders_tpu_torch (and its parallel, tools and utils packages, its
 stream, checkpoint and CLI modules), round-trips a frame on the CPU,
 sharded and not and on the device-repack route, builds tables with
 ``ops.tables``, merges lanes with ``ops.device_repack``, decodes a frame
-with the layout harness, streams a file,
+with the layout harness and with the JAX-signature ``ops.decode_lanes``,
+counts bytes with ``ops.histogram.histogram_u8``, streams a file,
 round-trips a checkpoint and an interleaved payload (its tables from the
 port's own host library) must not have loaded jax (the machine with the
 card has none). The JAX package is blocked in ``sys.modules`` before the
@@ -63,6 +64,12 @@ syms, finals, cur = H.decode_lanes_layout(
     words, torch.from_numpy(sizes), H.layout_tables(dec, L, "upack"),
     layout="upack", L=L, R=31)
 assert not cur.any() and (finals.numpy() == blocks.reshape(2, 32, 128)[:, 31]).all()
+from entropy_coders_tpu_torch import ops
+from entropy_coders_tpu_torch.ops.histogram import histogram_u8
+syms2, finals2 = ops.decode_lanes(words, sizes, dec, k=128, L=L, R=31,
+                                  device="cpu")
+assert torch.equal(finals2, finals) and torch.equal(syms2, syms)
+assert int(histogram_u8(blocks, device="cpu").sum()) == len(blocks)
 assert H.LAYOUT_LAUNCHES == dict.fromkeys(H.LAYOUTS, 0)
 assert T.__version__
 from entropy_coders_tpu_torch import builddir, frame as TF

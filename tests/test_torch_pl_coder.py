@@ -196,18 +196,18 @@ def test_wrappers_check_inputs():
     bt = torch.from_numpy(blocks)
     W = PL.encode_w_bound(3, 8)
     with pytest.raises(ValueError, match="multiple of 128"):
-        PL.encode_lanes(bt[:, :-128].contiguous(), t, k=96, L=8, W=W)
+        PL.encode_call(bt[:, :-128].contiguous(), t, k=96, L=8, W=W)
     with pytest.raises(ValueError, match="dtype"):
-        PL.encode_lanes(bt.to(torch.int32), t, k=128, L=8, W=W)
+        PL.encode_call(bt.to(torch.int32), t, k=128, L=8, W=W)
     with pytest.raises(ValueError, match="cannot hold"):
-        PL.encode_lanes(bt, t, k=128, L=8, W=0)
-    words, sizes = PL.encode_lanes(bt, t, k=128, L=8, W=W)
+        PL.encode_call(bt, t, k=128, L=8, W=0)
+    words, sizes = PL.encode_call(bt, t, k=128, L=8, W=W)
     with pytest.raises(ValueError, match="shape"):
-        PL.decode_lanes(words, sizes[:, :64], t.dec, L=8, R=3)
+        PL.decode_call(words, sizes[:, :64], t.dec, L=8, R=3)
     with pytest.raises(ValueError, match="contiguous"):
         strided = words.view(torch.int32).transpose(1, 2).contiguous()
-        PL.decode_lanes(strided.transpose(1, 2).view(torch.uint32), sizes,
-                        t.dec, L=8, R=3)
+        PL.decode_call(strided.transpose(1, 2).view(torch.uint32), sizes,
+                       t.dec, L=8, R=3)
 
 
 def test_histogram_matches_jax():
