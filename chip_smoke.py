@@ -102,12 +102,20 @@ drives the multi-device path (``entropy_coders_tpu_torch.parallel``):
   then, as B3's yardstick, NCCL's ``all_gather_into_tensor`` of the same
   per-rank chunk, one process a card (this script run with
   ``--nccl-worker``), by CUDA events and the host clock.
-* ``sharded``: the throughput point through ``parallel.compress`` /
-  ``decompress`` on ``default_mesh()`` and on eight virtual ranks, and 5
-  blocks over 8 ranks: each frame equals ``compress``'s, byte for byte,
-  and round-trips; with ``shared_table=True`` the sharded histogram, the
-  ring's all-reduce of the per-rank counts and ``np.bincount`` agree, and
-  the header they normalise to is the one the frame carries.
+* ``sharded``: the throughput point through ``compress`` without a
+  sharding, ``parallel.compress`` / ``decompress`` on eight virtual ranks
+  and on ``default_mesh()``, in turns (a warm-up round, then three, the
+  order reversed every other round; medians), and 5 blocks over 8 ranks:
+  each frame equals ``compress``'s, byte for byte, and round-trips; with
+  ``shared_table=True`` the sharded histogram, the ring's all-reduce of
+  the per-rank counts and ``np.bincount`` agree, and the header they
+  normalise to is the one the frame carries. With two cards or more,
+  ``default_mesh(1)`` against ``default_mesh()`` in turns at the
+  throughput point and at 1 GiB in config 4's shape (BASELINE.md: shared
+  table, 4 MiB blocks, k=8192, the default table-log policy), every frame
+  equal to the one-card frame; then each mesh's compress and decompress
+  once under ``torch.profiler``: each card's device window (first to
+  last kernel or copy) and the windows' union against their sum.
 * ``multihost``: two worker processes on the card (this script run with
   ``--multihost-worker``, gloo on 127.0.0.1) compress and decompress the
   128 MiB data through ``parallel.multihost``, plain and with
@@ -128,6 +136,7 @@ library (``entropy_coders_tpu_torch.native``) beside its kernels.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import importlib.util
 import json
@@ -151,6 +160,11 @@ THROUGHPUT = dict(block_size=BLOCK, k=16384, table_log=8, lanes=True)
 MULTIHOST_LEGS = {"plain": {},
                   "shared": dict(shared_table=True, bit_pack=True,
                                  checksum=True)}
+# config 4 of BASELINE.md (enwik9 on one host, shared table, mesh-sharded
+# blocks) at 1 GiB of the bench distribution: 4 MiB blocks, k=8192, the
+# default table-log policy
+CONFIG4_BYTES = 1 << 30
+CONFIG4 = dict(block_size=4 * MIB, k=8192, shared_table=True, lanes=True)
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's published peak
 NVLINK_BYTES_PER_S = 450e9  # one H100 SXM's NVLink, each way
 
@@ -492,6 +506,30 @@ def _device_host_counts():
             "tables": TB.TABLE_LAUNCHES}
 
 
+@contextlib.contextmanager
+def stage_clocks(spent: dict):
+    """While open, the ``ect.*`` ranges of ``frame`` and of
+    ``pl_coder.tables_from_norm`` add their host time to ``spent`` (stage
+    -> seconds) in place of profiler ranges."""
+    from entropy_coders_tpu_torch import frame as TF
+    from entropy_coders_tpu_torch.ops import pl_coder as PL
+
+    @contextlib.contextmanager
+    def clock(stage):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            spent[stage] = spent.get(stage, 0.0) + time.perf_counter() - t0
+
+    saved = TF._stage, PL.record_function
+    TF._stage = PL.record_function = clock
+    try:
+        yield spent
+    finally:
+        TF._stage, PL.record_function = saved
+
+
 def phase_routes(T, PL, points, rounds: int = 3):
     """Each point of ``points`` (name -> (data, knobs, the expected frame))
     through three routes in turns (``device``: no switch forced, the
@@ -504,76 +542,62 @@ def phase_routes(T, PL, points, rounds: int = 3):
     stages); every frame equal to the expected one and every round trip
     exact; a route's launch counts must show its kernels and none of the
     others'."""
-    import contextlib
-
     import torch
 
     from entropy_coders_tpu_torch import frame as TF
 
     spent = {}
-
-    @contextlib.contextmanager
-    def clock(stage):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            spent[stage] = spent.get(stage, 0.0) + time.perf_counter() - t0
-
     order = [*ROUTES, *reversed(ROUTES)] * rounds
-    saved = (TF._DEVICE_REPACK, PL.HOST_TABLES_ON_CUDA, TF._stage,
-             PL.record_function)
+    saved = (TF._DEVICE_REPACK, PL.HOST_TABLES_ON_CUDA)
     check(saved[0] is None, "routes: a repack switch is already forced")
     out = {}
     try:
-        # the stage ranges of frame.py and of tables_from_norm feed a
-        # host clock here, where no profiler listens
-        TF._stage = PL.record_function = clock
-        for name, (data, knobs, want) in points.items():
-            times = {r: {"compress_s": [], "decompress_s": [], "stages": []}
-                     for r in ROUTES}
-            launches = {}
-            for route in order:
-                repack, host_tables = ROUTES[route]
-                TF._DEVICE_REPACK = saved[0] if repack is None else repack
-                PL.HOST_TABLES_ON_CUDA = (saved[1] if host_tables is None
-                                          else host_tables)
-                spent.clear()
-                c0 = _device_host_counts()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                frame = T.compress(data, device="cuda", **knobs)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                back = T.decompress(frame, device="cuda")
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
-                got = {k: v - c0[k] for k, v in _device_host_counts().items()}
-                check(frame == want, f"routes: {name} frame differs on "
-                      f"route {route}")
-                check(back == data.tobytes(), f"routes: {name} round trip "
-                      f"on route {route}")
-                check((got["merge"] > 0) == (repack is None)
-                      and (got["split"] > 0) == (repack is None)
-                      and (got["tables"] > 0) == (host_tables is None),
-                      f"routes: {name} on route {route} launched {got}")
-                launches[route] = got
-                times[route]["compress_s"].append(t1 - t0)
-                times[route]["decompress_s"].append(t2 - t1)
-                times[route]["stages"].append(dict(spent))
-            for r in times:
-                for k in ("compress_s", "decompress_s"):
-                    times[r][k.replace("_s", "_median_s")] = \
-                        statistics.median(times[r][k])
-                runs = times[r].pop("stages")
-                times[r]["stage_median_ms"] = {
-                    st: statistics.median(x.get(st, 0.0) for x in runs) * 1e3
-                    for st in sorted(set().union(*runs))}
-            out[name] = {"frame_bytes": len(want), "order": order,
-                         "launches": launches, **times}
+        # the stage ranges feed a host clock here, where no profiler listens
+        with stage_clocks(spent):
+            for name, (data, knobs, want) in points.items():
+                times = {r: {"compress_s": [], "decompress_s": [], "stages": []}
+                         for r in ROUTES}
+                launches = {}
+                for route in order:
+                    repack, host_tables = ROUTES[route]
+                    TF._DEVICE_REPACK = saved[0] if repack is None else repack
+                    PL.HOST_TABLES_ON_CUDA = (saved[1] if host_tables is None
+                                              else host_tables)
+                    spent.clear()
+                    c0 = _device_host_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    frame = T.compress(data, device="cuda", **knobs)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    back = T.decompress(frame, device="cuda")
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    got = {k: v - c0[k] for k, v in _device_host_counts().items()}
+                    check(frame == want, f"routes: {name} frame differs on "
+                          f"route {route}")
+                    check(back == data.tobytes(), f"routes: {name} round trip "
+                          f"on route {route}")
+                    check((got["merge"] > 0) == (repack is None)
+                          and (got["split"] > 0) == (repack is None)
+                          and (got["tables"] > 0) == (host_tables is None),
+                          f"routes: {name} on route {route} launched {got}")
+                    launches[route] = got
+                    times[route]["compress_s"].append(t1 - t0)
+                    times[route]["decompress_s"].append(t2 - t1)
+                    times[route]["stages"].append(dict(spent))
+                for r in times:
+                    for k in ("compress_s", "decompress_s"):
+                        times[r][k.replace("_s", "_median_s")] = \
+                            statistics.median(times[r][k])
+                    runs = times[r].pop("stages")
+                    times[r]["stage_median_ms"] = {
+                        st: statistics.median(x.get(st, 0.0) for x in runs) * 1e3
+                        for st in sorted(set().union(*runs))}
+                out[name] = {"frame_bytes": len(want), "order": order,
+                             "launches": launches, **times}
     finally:
-        (TF._DEVICE_REPACK, PL.HOST_TABLES_ON_CUDA, TF._stage,
-         PL.record_function) = saved
+        TF._DEVICE_REPACK, PL.HOST_TABLES_ON_CUDA = saved
     emit("routes", **out)
     return out
 
@@ -1841,8 +1865,163 @@ def _ring_library(peer) -> dict:
             "peer_bound_ms": fw["bound_ms"]}
 
 
+def _sync_all():
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _same_bytes(back: bytes, data) -> bool:
+    import numpy as np
+
+    return len(back) == len(data) and np.array_equal(
+        np.frombuffer(back, np.uint8), data)
+
+
+def _codec(T, P, mesh):
+    """(compress, decompress) of the port on ``mesh``; None is no
+    sharding, on ``cuda``."""
+    if mesh is None:
+        return (lambda d, **kw: T.compress(d, device="cuda", **kw),
+                lambda f: T.decompress(f, device="cuda"))
+    return (lambda d, **kw: P.compress(d, mesh, **kw),
+            lambda f: P.decompress(f, mesh))
+
+
+def mesh_turns(T, P, meshes, data, knobs, want, runs: int = 3) -> dict:
+    """compress + decompress of ``data`` on each mesh of ``meshes`` (name
+    -> mesh, None for no sharding), one warm-up round, then ``runs``
+    rounds in turns, the order reversed every other round (ABC, CBA, ...).
+    Host clock, every card synchronised before and after each call, and
+    the host's time in each ``ect.*`` stage (``stage_clocks``); every
+    frame must equal ``want`` and every round trip be exact. Medians,
+    every run and the warm-up round (``*_s_cold``), in seconds; GB/s of
+    raw input at the medians."""
+    names = list(meshes)
+    times = {n: {"compress_s": [], "decompress_s": [], "stages": []}
+             for n in names}
+    order, spent = [], {}
+    with stage_clocks(spent):
+        for r in range(runs + 1):
+            for name in (names if r % 2 else names[::-1]):
+                comp, decomp = _codec(T, P, meshes[name])
+                spent.clear()
+                _sync_all()
+                t0 = time.perf_counter()
+                frame = comp(data, **knobs)
+                _sync_all()
+                t1 = time.perf_counter()
+                back = decomp(frame)
+                _sync_all()
+                t2 = time.perf_counter()
+                check(frame == want, f"turns: the frame on {name} differs")
+                check(_same_bytes(back, data), f"turns: round trip on {name}")
+                if not r:  # round 0 warms the pinned staging and the caches
+                    times[name].update(compress_s_cold=t1 - t0,
+                                       decompress_s_cold=t2 - t1)
+                    continue
+                order.append(name)
+                times[name]["compress_s"].append(t1 - t0)
+                times[name]["decompress_s"].append(t2 - t1)
+                times[name]["stages"].append(dict(spent))
+    for name in names:
+        t = times[name]
+        for key in ("compress", "decompress"):
+            t[f"{key}_median_s"] = statistics.median(t[f"{key}_s"])
+            t[f"{key}_GBps"] = len(data) / t[f"{key}_median_s"] / 1e9
+        stages = t.pop("stages")
+        t["stage_median_ms"] = {
+            st: statistics.median(x.get(st, 0.0) for x in stages) * 1e3
+            for st in sorted(set().union(*stages))}
+        t["ranks"] = 1 if meshes[name] is None else len(meshes[name])
+    return {"order": order, "input_bytes": len(data), "frame_bytes": len(want),
+            **times}
+
+
+def _interval_union(spans) -> float:
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def device_overlap(fn, tries: int = 3) -> dict:
+    """What each card's device did during one call of ``fn``, from
+    ``torch.profiler``'s device events (kernels, copies, memsets; not the
+    ``ect.*`` ranges' mirrors): a card's window runs from its first event's
+    start to its last's end, its busy time is the union of its events. The
+    windows' union against their sum: serial shares give a union close to
+    the sum, shares that run at once one near the largest window. A
+    profile that saw no device event is taken again, up to ``tries``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        _sync_all()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            _sync_all()
+        spans: dict = {}
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                    and not e.name.startswith("ect.")):
+                spans.setdefault(e.device_index, []).append(
+                    (e.time_range.start, e.time_range.end))
+        if spans:
+            break
+    if not spans:
+        return {"device_events_seen": False}
+    windows = {d: (min(a for a, _ in v), max(b for _, b in v))
+               for d, v in sorted(spans.items())}
+    union = _interval_union(windows.values())
+    total = sum(b - a for a, b in windows.values())
+    return {"device_events_seen": True, "cards": len(windows),
+            "window_ms": {d: (b - a) / 1e3 for d, (a, b) in windows.items()},
+            "busy_ms": {d: _interval_union(v) / 1e3
+                        for d, v in sorted(spans.items())},
+            "events": {d: len(v) for d, v in sorted(spans.items())},
+            "union_ms": union / 1e3, "sum_ms": total / 1e3,
+            "largest_ms": max(b - a for a, b in windows.values()) / 1e3,
+            "union_over_sum": union / total if total else None}
+
+
+def mesh_cards(T, P, data, knobs, runs: int = 3) -> dict:
+    """One card (``default_mesh(1)``) against every card
+    (``default_mesh()``) on ``data``: in turns (``mesh_turns``, every
+    frame equal to the unsharded one-card frame), then each mesh's
+    compress and decompress once under the profiler (``device_overlap``),
+    their frames and round trip checked."""
+    want = T.compress(data, device="cuda", **knobs)
+    meshes = {"one_card": P.default_mesh(1), "all_cards": P.default_mesh()}
+    out = {"knobs": knobs, **mesh_turns(T, P, meshes, data, knobs, want,
+                                        runs)}
+    for name, mesh in meshes.items():
+        frames, backs = [], []
+        c = device_overlap(
+            lambda: frames.append(P.compress(data, mesh, **knobs)))
+        d = device_overlap(lambda: backs.append(P.decompress(want, mesh)))
+        check(all(f == want for f in frames),
+              f"overlap: the frame on {name} differs")
+        check(all(_same_bytes(b, data) for b in backs),
+              f"overlap: round trip on {name}")
+        out[name]["overlap"] = {"compress": c, "decompress": d}
+    return out
+
+
 def phase_sharded(T, data, single_frame):
-    """The throughput point through parallel.compress/decompress."""
+    """The throughput point through parallel.compress/decompress; the
+    unsharded call, eight virtual ranks and ``default_mesh()`` in turns;
+    with two cards or more, one card against all of them at 128 MiB and at
+    1 GiB in config 4's shape (BASELINE.md: shared table, 4 MiB blocks,
+    k=8192, the default table-log policy), each with the cards' device
+    windows."""
     import numpy as np
     import torch
 
@@ -1852,28 +2031,17 @@ def phase_sharded(T, data, single_frame):
 
     dev = torch.device("cuda", 0)
     virtual8 = (dev,) * 8
-    out = {}
-    for name, mesh in (("default_mesh", P.default_mesh()),
-                       ("virtual_8", virtual8)):
-        times = {}
-        for tag in ("cold", "warm"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            frame = P.compress(data, mesh, **THROUGHPUT)
-            times[f"compress_s_{tag}"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            back = P.decompress(frame, mesh)
-            torch.cuda.synchronize()
-            times[f"decompress_s_{tag}"] = time.perf_counter() - t0
-            check(back == data.tobytes(), f"sharded round trip ({name})")
-        check(len(frame) == THROUGHPUT_BYTES,
-              f"sharded frame ({name}) is {len(frame)} bytes")
-        check(frame == single_frame, f"sharded frame ({name}) != compress's")
-        out[name] = {"ranks": len(mesh), "frame_bytes": len(frame),
-                     "compress_GBps": len(data) / times["compress_s_warm"] / 1e9,
-                     "decompress_GBps":
-                         len(data) / times["decompress_s_warm"] / 1e9,
-                     **times}
+    turns = mesh_turns(T, P, {"unsharded": None, "virtual_8": virtual8,
+                              "default_mesh": P.default_mesh()},
+                       data, THROUGHPUT, single_frame)
+    cards = {}
+    if torch.cuda.device_count() >= 2:
+        cards["throughput"] = mesh_cards(T, P, data, THROUGHPUT)
+        big = load_testdata().gen_sequence(0.2, CONFIG4_BYTES, BENCH_SEED)
+        cards["config4"] = mesh_cards(T, P, big, CONFIG4)
+        del big
+    check(len(single_frame) == THROUGHPUT_BYTES,
+          f"sharded frame is {len(single_frame)} bytes")
 
     five = data[: 5 * BLOCK]
     frame5 = P.compress(five, virtual8, **THROUGHPUT)
@@ -1901,9 +2069,10 @@ def phase_sharded(T, data, single_frame):
           "shared header != the normalised ring total")
     check(P.decompress(shared, virtual8) == data.tobytes(),
           "sharded shared-table round trip")
-    emit("sharded", meshes=out, five_blocks_bytes=len(frame5),
+    emit("sharded", meshes=turns, five_blocks_bytes=len(frame5),
          shared_frame_bytes=len(shared), shared_compress_s=shared_s,
-         shared_log2=s[1])
+         shared_log2=s[1], cards=cards or
+         "one card: one card against all needs >= 2")
 
 
 def phase_nccl(n: int, shape) -> dict:

@@ -30,8 +30,10 @@ parts it needs that import no jax (``normalize``, ``native``,
 ``constants``) are copied into it.
 """
 
+from .constants import TABLE_LOG_DEFAULT, TABLE_LOG_MAX, TABLE_LOG_MIN
 from .frame import compress, decompress
 
 __version__ = "0.1.0"
 
-__all__ = ["compress", "decompress", "__version__"]
+__all__ = ["TABLE_LOG_DEFAULT", "TABLE_LOG_MAX", "TABLE_LOG_MIN", "compress",
+           "decompress", "__version__"]

@@ -32,8 +32,15 @@ package's ``NamedSharding`` over the block axis) spreads the block work over
 ``sharding.mesh``, a tuple of devices in which a device may repeat (virtual
 ranks). The blocks of each table-log group split into one contiguous share
 per mesh entry; each share goes through the kernels on its own device and
-its sections land in block order. No share is padded, and the shares run
-one after the other. ``sharding`` changes no byte of the frame.
+its sections land in block order. No share is padded. As the JAX package's
+one SPMD call over the mesh runs every chip at once, every share's work is
+queued on its own device before the host drains any: the h2d of the blocks
+(from pinned staging when the mesh spans several cards), the histograms
+(CUDA's ``bincount`` waits for its own card's copy), and a lane group's
+chunks (compress: every share of a table-log group, the groups in turn;
+decompress: every share of every group). Then the host drains the shares
+in block order, so one share's assembly or write-back overlaps the device
+work of the shares after it. ``sharding`` changes no byte of the frame.
 """
 
 from __future__ import annotations
@@ -117,6 +124,30 @@ def _mesh(device, sharding) -> tuple[torch.device, ...]:
             raise ValueError(f"device={want} contradicts the sharding's "
                              f"mesh {mesh}")
     return mesh
+
+
+def _spans_cards(mesh) -> bool:
+    """Whether ``mesh`` names several CUDA devices: then its h2d copies go
+    out from pinned staging without blocking the host, so that the copies
+    to every card run at once. A copy to one card (virtual ranks included)
+    stays the pageable one, which the single-device path has always
+    made."""
+    return len({d for d in mesh if d.type == "cuda"}) > 1
+
+
+def _host_later(t: torch.Tensor):
+    """A zero-argument callable that returns ``t`` as host numpy: on CUDA
+    the d2h is queued now into pinned memory behind ``t``'s work and the
+    callable waits for that copy alone (``pl_coder._d2h``)."""
+    if t.device.type != "cuda":
+        return t.numpy
+    (host,), wait = PL._d2h([t], PL._launched(t.device), 0)
+
+    def get():
+        wait()
+        return host.numpy()
+
+    return get
 
 
 def _shares(n_rows: int, mesh) -> list[tuple[torch.device, int, int]]:
@@ -217,6 +248,25 @@ def compress(
     sections: list[bytes] = [b""] * n_blocks
     modes = np.full(n_blocks, MODE_FSE, np.int32)
 
+    nsym = None
+    if full:
+        blocks = data[: full * block_size].reshape(full, block_size)
+        # one h2d per share of the mesh (one share without a sharding): the
+        # device copies feed both the histogram and the lane encode kernel
+        with _stage("ect.compress.h2d"):
+            pinned = _spans_cards(mesh)
+            placed = [(lo, to_device(blocks[lo:hi], d, non_blocking=pinned))
+                      for d, lo, hi in _shares(full, mesh)]
+        with _stage("ect.compress.histogram"):
+            # every share's counts are queued before the first is waited
+            # for (CUDA's bincount itself waits for its card's h2d: it reads
+            # its input's min and max on the host)
+            pending = [_host_later(histogram_blocks(t)) for _, t in placed]
+            counts = np.concatenate([get() for get in pending])
+        # single-symbol blocks can't be FSE-coded (the reference's
+        # normalization rejects table_len == 1); they take the RLE escape
+        nsym = (counts != 0).sum(axis=1)
+
     shared_hdr = b""
     s_shared = None
     if shared_table:
@@ -224,29 +274,21 @@ def compress(
             s_shared = (np.asarray(shared_hist[0], np.int32),
                         int(shared_hist[1]))
         else:
-            # int64 counts: exact past u32 for > 4 GiB inputs
-            s_shared = resolve_shared_table(
-                np.bincount(data, minlength=256), total_len, table_log,
-                lanes)
+            # the whole input's counts, int64 (exact past u32 for > 4 GiB
+            # inputs): the full blocks' device counts and the tail's
+            with _stage("ect.compress.shared_table"):
+                counts_all = np.bincount(data[full * block_size:],
+                                         minlength=256)
+                if full:
+                    counts_all += counts.sum(axis=0)
+                s_shared = resolve_shared_table(counts_all, total_len,
+                                                table_log, lanes)
         if s_shared is None:
             shared_table = False  # degenerate / un-normalizable input:
         else:                     # blocks degrade to RAW/RLE
             shared_hdr = _write_header(*s_shared)
 
-    nsym = None
     if full:
-        blocks = data[: full * block_size].reshape(full, block_size)
-        # one h2d per share of the mesh (one share without a sharding): the
-        # device copies feed both the histogram and the lane encode kernel
-        with _stage("ect.compress.h2d"):
-            placed = [(lo, torch.from_numpy(blocks[lo:hi]).to(d))
-                      for d, lo, hi in _shares(full, mesh)]
-        with _stage("ect.compress.histogram"):
-            counts = np.concatenate([histogram_blocks(t).cpu().numpy()
-                                     for _, t in placed])
-        # single-symbol blocks can't be FSE-coded (the reference's
-        # normalization rejects table_len == 1); they take the RLE escape
-        nsym = (counts != 0).sum(axis=1)
         codable = np.flatnonzero(nsym > 1)
         if codable.size:
             if shared_table:
@@ -364,21 +406,20 @@ def _frame_header(total_len, k, block_size, n_blocks, shared,
                                total_len, n_blocks)
 
 
-def _encode_group_pl(blocks_dev, norm_tables, l2, k, shared_table, sections,
-                     modes, block_ids, bit_pack=False):
-    """Per-lane-stream (MODE_FSE_PL) encode of equal-size blocks sharing one
-    table log, from the device-resident (B, n) uint8 ``blocks_dev``: the
-    group's encode tables built once (D3 on CUDA), then B2 on CUDA, its
-    plain version on CPU, ~64 MiB of raw bytes per call, each call on its
-    rows of the tables; then the lane merge (D1 on the card behind B2, or
-    the C++ merge on the host: ``_DEVICE_REPACK``) and section assembly on
-    the host. The tables, 2^(L+1) + 2 KiB a block, stay until the group's
-    last chunk is collected."""
+def _encode_dispatch_pl(blocks_dev, norm_tables, l2, k, bit_pack=False):
+    """Queue the per-lane-stream (MODE_FSE_PL) encode of equal-size blocks
+    sharing one table log, from the device-resident (B, n) uint8
+    ``blocks_dev``: the group's encode tables built once (D3 on CUDA), then
+    B2 on CUDA, its plain version on CPU, ~64 MiB of raw bytes per call,
+    each call on its rows of the tables, and the lane merge (D1 on the card
+    behind B2; on the C++ route, ``_DEVICE_REPACK``, the merge runs at the
+    drain). Returns what ``_encode_drain_pl`` takes: the tables, 2^(L+1) +
+    2 KiB a block, are held until the group's last chunk is collected."""
     B, n = blocks_dev.shape
     R = n // k - 1
     W = PL.encode_w_bound(R, int(l2))
-
     on_device = _device_repack(blocks_dev.device)
+    chunk = max(1, _cdiv(_CHUNK_RAW, n))
 
     def launch(j0):
         rows = slice(j0, j0 + chunk)
@@ -396,11 +437,19 @@ def _encode_group_pl(blocks_dev, norm_tables, l2, k, shared_table, sections,
     # (entropy_coders_tpu/frame.py:477-488): the host's merge (on its
     # route) and section assembly of one chunk overlap the device work of
     # the chunks after it
-    chunk = max(1, _cdiv(_CHUNK_RAW, n))
     with _stage("ect.compress.dispatch"):
         tables = PL.tables_from_norm(norm_tables, int(l2), blocks_dev.device,
                                      half="encode")
         handles = [(j0, launch(j0)) for j0 in range(0, B, chunk)]
+    return tables, on_device, handles
+
+
+def _encode_drain_pl(dispatched, norm_tables, l2, shared_table, sections,
+                     modes, block_ids, bit_pack=False):
+    """Collect the chunks ``_encode_dispatch_pl`` queued, in order, and
+    assemble their sections on the host: row j of ``norm_tables`` codes
+    block ``block_ids[j]`` into ``sections[block_ids[j]]``."""
+    _tables, on_device, handles = dispatched
     for j0, collect in handles:
         with _stage("ect.compress.collect"):
             got = collect()
@@ -433,7 +482,8 @@ def _rows_on(dev, ids, blocks, placed):
         if t.device == dev and lo <= ids[0] and ids[-1] < lo + t.shape[0]:
             if ids[-1] - ids[0] + 1 == len(ids):
                 return t[ids[0] - lo: ids[-1] - lo + 1]
-            return t[torch.from_numpy(ids - lo).to(dev)]
+            # a blocking copy would wait for the shares queued on ``dev``
+            return t[to_device(ids - lo, dev, non_blocking=True)]
     return torch.from_numpy(np.ascontiguousarray(blocks[ids])).to(dev)
 
 
@@ -445,27 +495,34 @@ def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
     array ``blocks`` into ``sections[block_ids[j]]``. Each group splits into
     one contiguous share per entry of ``mesh``. With ``lanes``, eligible
     groups take the per-lane path (reading the device copies in ``placed``
-    where they hold the share); the others take the shared-stream path
-    (ops.coder)."""
+    where they hold the share): every share is dispatched on its own device
+    before any is drained. The others take the shared-stream path
+    (ops.coder), a share at a time. The groups run in turn, as in the JAX
+    package."""
     n = blocks.shape[1]
     layout = None  # shared-stream emission layout, built on first use
 
     for l2 in np.unique(log2_arr):
         rows = np.flatnonzero(log2_arr == l2)
-        pl = lanes and _pl_eligible(n, k, int(l2))
-        if not pl and layout is None:
-            layout = encode_layout(n, k)
-        for dev, lo, hi in _shares(len(rows), mesh):
-            ids = block_ids[rows[lo:hi]]
-            if pl:
-                _encode_group_pl(_rows_on(dev, ids, blocks, placed),
-                                 norm_tables[rows[lo:hi]], int(l2), k,
-                                 shared_table, sections, modes, ids,
+        shares = [(dev, rows[lo:hi]) for dev, lo, hi in
+                  _shares(len(rows), mesh)]
+        if lanes and _pl_eligible(n, k, int(l2)):
+            dispatched = [
+                _encode_dispatch_pl(
+                    _rows_on(dev, block_ids[r], blocks, placed),
+                    norm_tables[r], int(l2), k, bit_pack=bit_pack)
+                for dev, r in shares]
+            for (_, r), d in zip(shares, dispatched):
+                _encode_drain_pl(d, norm_tables[r], int(l2), shared_table,
+                                 sections, modes, block_ids[r],
                                  bit_pack=bit_pack)
-            else:
-                _encode_group_fse(blocks[ids], norm_tables[rows[lo:hi]],
-                                  int(l2), k, shared_table, sections, ids,
-                                  dev, layout)
+            continue
+        if layout is None:
+            layout = encode_layout(n, k)
+        for dev, r in shares:
+            _encode_group_fse(blocks[block_ids[r]], norm_tables[r], int(l2),
+                              k, shared_table, sections, block_ids[r], dev,
+                              layout)
 
 
 def _encode_group_fse(blocks, norm_tables, l2, k, shared_table, sections,
@@ -710,10 +767,17 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
             spans[dev] = (min(lo, items[0][3]),
                           max(hi, items[-1][3] + len(items[-1][1])))
     with _stage("ect.decompress.h2d"):
-        on_dev = {dev: (DR.bytes_on(pf.frame, lo, hi, dev), lo)
+        pinned = _spans_cards(mesh)
+        on_dev = {dev: (DR.bytes_on(pf.frame, lo, hi, dev,
+                                    non_blocking=pinned), lo)
                   for dev, (lo, hi) in spans.items()}
-    for items, rl, log2, dev in pl_calls:
-        _decode_group_pl(items, rl, log2, pf, out, base, dev, on_dev.get(dev))
+    # every share of every group is dispatched on its own device before
+    # the first is drained (the JAX package's one call over the mesh)
+    dispatched = [_decode_dispatch_pl(items, rl, log2, pf, dev,
+                                      on_dev.get(dev))
+                  for items, rl, log2, dev in pl_calls]
+    for (items, rl, _, _), d in zip(pl_calls, dispatched):
+        _decode_drain_pl(d, items, rl, pf, out, base)
     with _stage("ect.decompress.output"):
         if pf.crcs is not None:
             for i in wanted:
@@ -730,17 +794,19 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
         return out[start - base: start - base + length].tobytes()
 
 
-def _decode_group_pl(items, raw_len, log2, pf, out, out_base, dev,
-                     span=None):
-    """Decode MODE_FSE_PL blocks sharing one (raw_len, log2): the lane
-    sizes and framing are checked on the host, the lane split fills the
-    (B, W, k) word layout, and B1 (its plain version on CPU) decodes
-    ~64 MiB of raw bytes per call. ``items`` are (block, payload, table,
-    the payload's offset in the frame). With ``span`` (a uint8 tensor on
-    ``dev`` holding the frame from byte ``span[1]`` on, past every item's
-    payload) the split runs on the device (D2) from those bytes; without
-    it the C++ split runs on the host and the words are copied. The
-    group's decode tables are built once, before the first chunk."""
+def _decode_dispatch_pl(items, raw_len, log2, pf, dev, span=None):
+    """Queue the decode of MODE_FSE_PL blocks sharing one (raw_len, log2)
+    on ``dev``: the lane sizes and framing are checked on the host (a
+    corrupt block raises ValueError here, before anything of this call is
+    queued), the lane split fills the (B, W, k) word layout, and B1 (its
+    plain version on CPU) decodes ~64 MiB of raw bytes per call. ``items``
+    are (block, payload, table, the payload's offset in the frame). With
+    ``span`` (a uint8 tensor on ``dev`` holding the frame from byte
+    ``span[1]`` on, past every item's payload) the split runs on the device
+    (D2) from those bytes; without it the C++ split runs on the host and
+    the words are copied. The group's decode tables are built once, before
+    the first chunk, and held until the last is collected. Returns what
+    ``_decode_drain_pl`` takes."""
     k = pf.k
     if not (TABLE_LOG_MIN <= log2 <= TABLE_LOG_MAX):
         raise ValueError(f"corrupt frame: table log {log2} out of range")
@@ -796,9 +862,9 @@ def _decode_group_pl(items, raw_len, log2, pf, out, out_base, dev,
     W = -(-(int(sizes.max()) // 32 + 3) // 16) * 16
 
     # the host queues every chunk's split (or, on the host route, splits
-    # and queues the h2d) and dispatches its kernel, then drains in order:
-    # the write-back of chunk i overlaps the device decode of the chunks
-    # after it (entropy_coders_tpu/frame.py:854-868)
+    # and queues the h2d) and dispatches its kernel; the drain comes later,
+    # in order, so the write-back of chunk i overlaps the device decode of
+    # the chunks after it (entropy_coders_tpu/frame.py:854-868)
     chunk = max(1, _cdiv(_CHUNK_RAW, raw_len))
     handles = []
     with _stage("ect.decompress.dispatch"):
@@ -823,14 +889,23 @@ def _decode_group_pl(items, raw_len, log2, pf, out, out_base, dev,
             handles.append((j0, PL.decode_lanes_norm(
                 words, sizes_dev, norm_tables[j0: j0 + chunk], k=k, L=log2, R=R,
                 lazy=True, tables=PL.table_rows(tables, j0, j0 + chunk))))
+    return tables, handles
+
+
+def _decode_drain_pl(dispatched, items, raw_len, pf, out, out_base):
+    """Collect the chunks ``_decode_dispatch_pl`` queued, in order (a lane
+    cursor not drained raises ValueError), and write their blocks back
+    into ``out``."""
+    _tables, handles = dispatched
     for j0, collect in handles:
         with _stage("ect.decompress.collect"):
             syms, finals = collect()
         with _stage("ect.decompress.write_back"):
+            n_syms = syms.shape[1] * syms.shape[2]
             for jj in range(syms.shape[0]):
                 o = items[j0 + jj][0] * pf.block_size - out_base
-                out[o: o + R * k] = syms[jj].reshape(-1)
-                out[o + R * k: o + raw_len] = finals[jj]
+                out[o: o + n_syms] = syms[jj].reshape(-1)
+                out[o + n_syms: o + raw_len] = finals[jj]
 
 
 def _decode_group(items, raw_len, log2, pf, out, out_base, dev):

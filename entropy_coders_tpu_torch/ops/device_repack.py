@@ -32,7 +32,8 @@ PyTorch).
   is two gathers at the same offsets and a shift-combine; ``_masked_words``
   cuts each lane at its length.
 * ``merge_bits_device``/``split_bits_device`` carry the JAX names and
-  signatures (one block, bit-packed) over the plain versions.
+  signatures (one block, bit-packed) over the plain versions;
+  ``merge_bits_np`` is the JAX name of the host merge's bytes.
 
 What the masks pin: a bit-packed merge drops every bit at or above a lane's
 size, as ``native``'s does, so words with guard bits set give the same
@@ -65,6 +66,7 @@ __all__ = [
     "lane_split_device",
     "lane_split_ref",
     "merge_bits_device",
+    "merge_bits_np",
     "split_bits_device",
 ]
 
@@ -182,6 +184,13 @@ def split_bits_device(packed, sizes, *, W: int):
                           pack_bits=True)[0]
 
 
+def merge_bits_np(words, sizes) -> bytes:
+    """Host bytes of ``merge_bits_device``, the JAX name's host wrapper:
+    one block's ``words (W, k)`` uint32 and ``sizes (k,)`` bits ->
+    the bit-packed payload (``pl_coder.lane_merge_bits``, the C++ merge)."""
+    return PL.lane_merge_bits(words, sizes)
+
+
 def _check_lanes(words_shape, sizes, dev):
     B, W, k = words_shape
     if k % 128 or k >= 1 << 16:
@@ -292,11 +301,17 @@ def lane_split_device(flat, block_offs, sizes, *, k: int, W: int,
     return words
 
 
-def bytes_on(buffer, lo: int, hi: int, device) -> torch.Tensor:
+def bytes_on(buffer, lo: int, hi: int, device,
+             non_blocking: bool = False) -> torch.Tensor:
     """Bytes ``[lo, hi)`` of ``buffer`` (bytes, a bytearray, an ``mmap``, a
     numpy array: anything with the buffer protocol) as a uint8 tensor on
     ``device``, zero-padded to a multiple of 4 bytes: one copy, no
-    intermediate ``bytes``. The source is only read."""
+    intermediate ``bytes``. The source is only read.
+
+    ``non_blocking`` stages the bytes for a CUDA device in pinned host
+    memory and queues the h2d without waiting for it (as
+    ``unsigned.to_device`` does), so that copies to several cards run at
+    once; the pageable copy blocks the host until it is done."""
     n = hi - lo
     out = torch.zeros(-(-n // 4) * 4, dtype=torch.uint8, device=device)
     if n:
@@ -304,7 +319,10 @@ def bytes_on(buffer, lo: int, hi: int, device) -> torch.Tensor:
             warnings.simplefilter("ignore", UserWarning)
             src = torch.frombuffer(buffer, dtype=torch.uint8, count=n,
                                    offset=lo)
-        out[:n].copy_(src)
+        pinned = non_blocking and out.device.type == "cuda"
+        if pinned:
+            src = torch.empty(n, dtype=torch.uint8, pin_memory=True).copy_(src)
+        out[:n].copy_(src, non_blocking=pinned)
     return out
 
 

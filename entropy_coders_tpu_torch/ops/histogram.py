@@ -21,16 +21,23 @@ from .unsigned import entry_device, entry_tensor
 _CHUNK_BYTES = 1 << 24  # bytes of input per bincount (128 MiB of int64 index)
 
 
-def histogram_blocks(blocks: torch.Tensor) -> torch.Tensor:
-    """(B, n) uint8 -> (B, 256) int64 per-block counts, on the blocks'
-    device."""
+def histogram_blocks(data_blocks, *, device=None) -> torch.Tensor:
+    """(B, n) uint8 -> (B, 256) int64 per-block counts (the JAX package's
+    ``ops.histogram.histogram_blocks``), on ``device``: as the lane entries
+    take it (``unsigned.entry_device``), the tensor's device when None, and
+    ``"cuda"`` for a numpy array. ValueError for another shape or dtype."""
+    dev = entry_device(device, data_blocks)
+    blocks = entry_tensor(data_blocks, np.uint8, dev)
+    if blocks.dim() != 2 or blocks.dtype != torch.uint8:
+        raise ValueError(f"data_blocks must be (B, n) uint8, got "
+                         f"{tuple(blocks.shape)} {blocks.dtype}")
     B, n = blocks.shape
-    counts = torch.empty((B, ALPHABET), dtype=torch.int64, device=blocks.device)
+    counts = torch.empty((B, ALPHABET), dtype=torch.int64, device=dev)
     rows = max(1, _CHUNK_BYTES // max(n, 1))
     for b0 in range(0, B, rows):
         chunk = blocks[b0 : b0 + rows]
         nb = chunk.shape[0]
-        offset = torch.arange(nb, device=blocks.device).unsqueeze(1) * ALPHABET
+        offset = torch.arange(nb, device=dev).unsqueeze(1) * ALPHABET
         idx = (chunk.to(torch.int64) + offset).reshape(-1)
         counts[b0 : b0 + nb] = torch.bincount(
             idx, minlength=nb * ALPHABET).view(nb, ALPHABET)

@@ -363,7 +363,7 @@ def decode_lanes_norm(words, sizes, norm_tables, *, k: int, L: int, R: int,
     it waits for this call's copies only, raises the ValueError above, and
     returns host numpy (syms, finals). On the CPU the plain version has
     already run and ``collect`` returns its results. Callers dispatch
-    every chunk and then collect them in order (``frame._decode_group_pl``),
+    every chunk and then collect them in order (``frame._decode_dispatch_pl``),
     so every chunk's words and outputs are on the card at once."""
     if words.dim() != 3 or words.shape[2] != k:
         raise ValueError("k must match words (B, W, k)")
@@ -530,7 +530,7 @@ def encode_lanes_norm(blocks, norm_tables, *, k: int, L: int, W: int,
     kernel and not behind the kernels queued after it, and returns host
     numpy (words uint32, sizes int32). On the CPU the plain version has
     already run. Callers dispatch every chunk and then collect them in
-    order (``frame._encode_group_pl``), so every chunk's words are on the
+    order (``frame._encode_dispatch_pl``), so every chunk's words are on the
     card at once: W * k * 4 bytes a block at the worst-case bound W, about
     L/8 of its raw bytes plus two guard rows (1.03x at 16 MiB blocks and
     L=8, 1.5x at 128 KiB blocks and L=11: at most 768 MiB for a 512 MiB

@@ -40,10 +40,23 @@ __all__ = [
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None,
+                     cpu_collectives: str | None = None,
                      backend: str = "gloo") -> None:
     """Join the process group at ``coordinator_address`` (``host:port``)
     as rank ``process_id`` of ``num_processes``. A no-op when the group is
-    already initialised, or when no argument is given (a single process)."""
+    already initialised, or when no argument is given (a single process).
+
+    ``cpu_collectives`` is the JAX package's keyword: ``"gloo"`` selects
+    the gloo backend (the exchanged data are host bytes), and any other
+    value raises ValueError; ``backend`` names the ``torch.distributed``
+    backend directly."""
+    if cpu_collectives is not None:
+        if cpu_collectives != "gloo":
+            raise ValueError(f"cpu_collectives={cpu_collectives!r}: only "
+                             "'gloo' is supported")
+        if backend != "gloo":
+            raise ValueError(f"cpu_collectives='gloo' contradicts "
+                             f"backend={backend!r}")
     if dist.is_initialized():
         return
     args = (coordinator_address, num_processes, process_id)

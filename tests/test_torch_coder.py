@@ -122,21 +122,29 @@ def _core_inputs(src, k, hist):
     return enc, dict(k=k, L=hist.log2, W=W), R
 
 
+def _stream(enc):
+    """The one-stream arguments of the checked cores (the JAX package's)
+    from the batched ones."""
+    syms, valid, init, fin, (table, tt_bits, tt_fs) = enc
+    return syms[0], valid, init[0], fin, tt_bits[0], tt_fs[0], table[0]
+
+
 def test_checked_cores_equal_unchecked():
     src = gen_sequence(0.2, 3000, seed=9)
     hist, _ = spec_payload(src, 4)
     enc, kw, R = _core_inputs(src, 4, hist)
     words, bits = C.encode_core(*enc, **kw)
-    cwords, cbits = CK.checked_encode_core(*enc, **kw)
-    assert torch.equal(words, cwords) and torch.equal(bits, cbits)
+    cwords, cbits = CK.checked_encode_core(*_stream(enc), **kw)
+    assert torch.equal(words[0], cwords) and torch.equal(bits[0], cbits)
     packed = to_device(np.asarray(DecodeTable(hist).packed, np.uint32)[None],
                        "cpu")
     dec = (torch.cat([words, torch.zeros((1, 2), dtype=torch.int64)], 1),
            bits, packed)
     plain = C.decode_core(*dec, k=4, L=hist.log2, R=R + 1)
-    checked = CK.checked_decode_core(*dec, k=4, L=hist.log2, R=R + 1)
+    checked = CK.checked_decode_core(dec[0][0], dec[1][0], dec[2][0], k=4,
+                                     L=hist.log2, R=R + 1)
     for a, b in zip(plain, checked):
-        assert torch.equal(a, b)
+        assert torch.equal(a[0], b)
 
 
 def test_checked_cores_raise_value_error_on_out_of_range():
@@ -151,7 +159,8 @@ def test_checked_cores_raise_value_error_on_out_of_range():
     small = (table[:, : table.shape[1] // 2].contiguous(), tt_bits, tt_fs)
     C.encode_core(syms, valid, init, fin, small, **kw)  # clamps silently
     with pytest.raises(ValueError, match="out of range"):
-        CK.checked_encode_core(syms, valid, init, fin, small, **kw)
+        CK.checked_encode_core(*_stream((syms, valid, init, fin, small)),
+                               **kw)
 
     words, bits = C.encode_core(*enc, **kw)
     words = torch.cat([words, torch.zeros((1, 2), dtype=torch.int64)], 1)
@@ -161,11 +170,12 @@ def test_checked_cores_raise_value_error_on_out_of_range():
     with pytest.raises(RuntimeError):  # torch's own gather check
         C.decode_core(words, bits, half, k=4, L=hist.log2, R=R + 1)
     with pytest.raises(ValueError, match="out of range"):
-        CK.checked_decode_core(words, bits, half, k=4, L=hist.log2, R=R + 1)
+        CK.checked_decode_core(words[0], bits[0], half[0], k=4, L=hist.log2,
+                               R=R + 1)
     past = bits + 32 * words.shape[1]
     C.decode_core(words, past, packed, k=4, L=hist.log2, R=R + 1)  # clamps
     with pytest.raises(ValueError, match="bit offset"):
-        CK.checked_decode_core(words, past, packed, k=4, L=hist.log2,
+        CK.checked_decode_core(words[0], past[0], packed[0], k=4, L=hist.log2,
                                R=R + 1)
 
 

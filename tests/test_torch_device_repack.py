@@ -337,9 +337,9 @@ def device_route(monkeypatch):
         calls["split"] += 1
         return real[1](*a, **kw)
 
-    def bytes_on(buffer, lo, hi, device):
+    def bytes_on(buffer, lo, hi, device, **kw):
         calls["spans"].append((lo, hi))
-        return real[2](buffer, lo, hi, device)
+        return real[2](buffer, lo, hi, device, **kw)
 
     monkeypatch.setattr(DR, "lane_merge_device", merge)
     monkeypatch.setattr(DR, "lane_split_device", split)

@@ -60,6 +60,12 @@ JAX_CONFIGS = {
                                             checksum=True)),
     "shared_table": (4 * 4096, dict(block_size=4096, k=256,
                                     shared_table=True)),
+    # the shared counts from the full blocks' device histograms plus the
+    # tail's, and from the tail alone (lane-divisible: the per-lane path)
+    "shared_table_tail": (3 * 4096 + 777, dict(block_size=4096, k=256,
+                                               shared_table=True)),
+    "shared_table_no_full_block": (12 * 256, dict(block_size=4096, k=256,
+                                                  shared_table=True)),
     "bit_pack": (2 * 4096 + 512, dict(block_size=4096, k=256,
                                       bit_pack=True)),
     "default_policy": (2 * 2048 + 100, dict(block_size=2048, k=128)),

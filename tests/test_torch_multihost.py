@@ -48,7 +48,9 @@ def make_data(n_blocks: int) -> np.ndarray:
 
 
 def worker(port: int, num: int, pid: int, n_blocks: int, legs) -> None:
-    MH.init_distributed(f"127.0.0.1:{port}", num, pid)
+    # the JAX test worker's call (tests/multihost_worker.py)
+    MH.init_distributed(f"127.0.0.1:{port}", num_processes=num,
+                        process_id=pid, cpu_collectives="gloo")
     data = make_data(n_blocks)
     lo, hi = MH.owned_blocks(n_blocks)
     digests = {}

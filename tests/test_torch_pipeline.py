@@ -1,7 +1,8 @@
 """The per-lane path's chunk pipeline (``lazy=True`` on
 ``ops.pl_coder.encode_lanes_norm``/``decode_lanes_norm``, the
-dispatch-all-then-drain loops of ``frame._encode_group_pl`` and
-``frame._decode_group_pl``) on the CPU, where ``collect`` returns the plain
+dispatch-all-then-drain loops of ``frame._encode_dispatch_pl`` /
+``_encode_drain_pl`` and ``frame._decode_dispatch_pl`` /
+``_decode_drain_pl``) on the CPU, where ``collect`` returns the plain
 versions' results.
 
 Tolerance: exact. Frames are compared byte for byte with the JAX package's
