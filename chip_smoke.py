@@ -80,7 +80,19 @@ the default point under ``utils.trace`` (``torch.profiler``) and prints the
 device time it saw beside the wall time, the five device ops that took the
 most, and the host's wall time in each stage of ``frame.compress`` /
 ``decompress`` (their ``ect.*`` profiler ranges), on the container's route
-and with the C++ repack. Then it
+and with the C++ repack. Phase ``configs`` (after ``lane_entries``)
+runs the root scripts' measurements on the port
+(``tools.bench_configs``, ``tools.policy_sweep``) at the JAX sizes,
+nothing cut: configs 1-6 (config 4 on ``default_mesh()``, every card)
+and the table-log policy sweep, one build of each corpus shared, every
+result line and each corpus's sha256 printed (the text corpora follow
+the tree's root files); every round trip exact, config 6's ratios of
+geo, bf16 and jsonlog as BASELINE.md gives them to 4 places, each
+decode-rate timer call's B1 launches as the timer counted them; then
+B1's rate at L = 8 on each corpus beside the sweep's per-L rates on geo,
+and the same frames retaken in turns, with and without the spin that
+hides the host's launches.
+Then it
 drives the multi-device path (``entropy_coders_tpu_torch.parallel``):
 
 * ``ring``: B3 against its plain version on virtual ranks, a mesh that
@@ -1058,6 +1070,137 @@ def phase_trace(T, points):
                   for key, t, n in top],
             host_stages=dict(sorted(stages.items())))
     emit("trace", **out)
+
+
+# config 6's ratios of the corpora that do not read the tree's text
+# (BASELINE.md:75-79): (throughput point, parity point), to 4 places. The
+# wire bytes are fixed, so the card gives the ratios the JAX package gave.
+CONFIG6_RATIOS = {"geo(bench)": (0.4599, 0.4528), "bf16": (0.8310, 0.8337),
+                  "jsonlog": (0.6166, 0.6122)}
+CONFIG_TIMER_CALLS = 15  # configs 3, 4, 6 (x5) and 2 x 4 sweep rate points
+
+
+def turn_points(BC, PS, corpora) -> dict:
+    """name -> (frame, data, knobs) of the frames whose B1 rates phase
+    ``configs`` retakes in turns: each config-6 corpus at the throughput
+    point (``table_log=8``: a block whose symbols reach 255 takes L = 9,
+    the reference's table-length clamp), and geo at each of the sweep's
+    logs in both sweep configs (geo's ``bench`` L = 8 frame is the
+    throughput frame again: two entries of one frame show the spread)."""
+    from entropy_coders_tpu_torch import compress
+
+    points = {}
+    for name, key in BC.CONFIG6_CORPORA.items():
+        data = corpora.get(key, BC.CORPUS_BYTES)
+        points[f"{name} throughput"] = (compress(
+            data, **BC.THROUGHPUT, lanes=True, device="cuda"), data,
+            BC.THROUGHPUT)
+    geo = corpora.get("geo", PS.SIZE)
+    for cname, cfg in PS.CONFIGS.items():
+        for L in PS.LS:
+            points[f"geo {cname} L{L}"] = (compress(
+                geo, table_log=L, lanes=True, device="cuda", **cfg), geo, cfg)
+    return points
+
+
+def rates_in_turns(points, passes: int = 2) -> dict:
+    """B1's rate on each frame of ``points``, the frames timed in turns
+    (``bench_configs.device_decode_gbps``), forward then backward, so that
+    no frame gains from its place in the order: per frame its L, the
+    median GB/s over every run of every pass, and their range."""
+    from entropy_coders_tpu_torch.tools import bench_configs as BC
+
+    order = list(points)
+    runs = {name: [] for name in order}
+    enqueue = {name: [] for name in order}
+    logs = {}
+    for i in range(passes):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            frame, data, knobs = points[name]
+            rate = BC.device_decode_gbps(frame, knobs["block_size"],
+                                         knobs["k"], data=data)
+            raw = rate.blocks * knobs["block_size"]
+            runs[name] += [raw / ms / 1e6 for ms in rate.runs_ms]
+            enqueue[name].append(rate.enqueue_ms)
+            logs[name] = rate.L
+    return {name: {"L": logs[name], "GBps": statistics.median(r),
+                   "GBps_range": [min(r), max(r)], "runs": len(r),
+                   "enqueue_ms": statistics.median(enqueue[name])}
+            for name, r in runs.items()}
+
+
+def phase_configs(PL):
+    """The root scripts' measurements on the card (``tools.bench_configs``,
+    ``tools.policy_sweep``), at the JAX sizes: configs 1-6, then the
+    table-log policy sweep, sharing one build of each corpus. Each result
+    line is printed as it comes, then each corpus's sha256 (the text
+    corpora follow the tree's root files). Checks: every round trip exact
+    (the tools raise otherwise); geo, bf16 and jsonlog give config 6's
+    ratios (``CONFIG6_RATIOS``); every decode-rate timer call's B1
+    launches, as the wrapper counts them, are the calls the timer counted.
+    Then B1's rate at the throughput point on each corpus (config 6)
+    beside the sweep's per-L rates on geo, and the same frames' rates
+    retaken in turns with the range of their runs (``rates_in_turns``):
+    whether B1's rate depends on the corpus."""
+    from entropy_coders_tpu_torch.tools import bench_configs as BC
+    from entropy_coders_tpu_torch.tools import policy_sweep as PS
+
+    real = BC.device_decode_gbps
+    timer_calls = []
+
+    def counted_timer(*args, **kwargs):
+        before = PL.DECODE_LAUNCHES
+        rate = real(*args, **kwargs)
+        made = PL.DECODE_LAUNCHES - before
+        check(made == rate.launches > 0,
+              f"the decode-rate timer counted {rate.launches} B1 calls; "
+              f"the wrapper launched {made}")
+        timer_calls.append(made)
+        return rate
+
+    def out(line):
+        emit("configs", **json.loads(line))
+
+    corpora = BC.Corpora()
+    BC.device_decode_gbps = counted_timer
+    try:
+        t0 = time.perf_counter()
+        results = {r["config"]: r
+                   for r in BC.run(device="cuda", corpora=corpora, out=out)}
+        t1 = time.perf_counter()
+        sweep = PS.sweep(device="cuda", corpora=corpora, out=out)
+        t2 = time.perf_counter()
+        check(len(timer_calls) == CONFIG_TIMER_CALLS,
+              f"{len(timer_calls)} decode-rate timer calls, expected "
+              f"{CONFIG_TIMER_CALLS}")
+        points = turn_points(BC, PS, corpora)
+        turns = rates_in_turns(points)
+        # the same without the spin before each run: the events then time
+        # the host's launches wherever they are slower than B1
+        hold, BC.HOLD_CYCLES = BC.HOLD_CYCLES, 0
+        try:
+            turns_unheld = rates_in_turns(points)
+        finally:
+            BC.HOLD_CYCLES = hold
+    finally:
+        BC.device_decode_gbps = real
+    rows = results[6]["corpora"]
+    for name, (thr, par) in CONFIG6_RATIOS.items():
+        got = (round(rows[name]["ratio_throughput_L8"], 4),
+               round(rows[name]["ratio_parity_L11_packed"], 4))
+        check(got == (thr, par), f"config 6 {name}: ratios {got}, expected "
+              f"{(thr, par)}")
+    emit("configs_summary", configs_s=t1 - t0, sweep_s=t2 - t1,
+         turns_s=time.perf_counter() - t2, rates_in_turns=turns,
+         rates_in_turns_unheld=turns_unheld,
+         timer_calls=len(timer_calls), timer_launches=sum(timer_calls),
+         corpora_sha256={f"{name}@{n}": corpora.sha256(name, n)
+                         for name, n in corpora.built()},
+         config6_L8_by_corpus={name: {"GBps": r["device_decode_GBps_L8"],
+                                      "L": r["decode_L"]}
+                               for name, r in rows.items()},
+         sweep_rates_geo={c: {str(L): g for L, g in r.items()}
+                          for c, r in sweep["rates"].items()})
 
 
 _SASS_LAT = {}
@@ -2306,6 +2449,9 @@ def run_single(T, PL, gg, data, card):
     # main path's counts were read
     timing["entries"], entries_err = phase_lane_entries(data, card)
     worst = max(worst, entries_err)
+    # the root scripts' measurements: after the timed phases, so that their
+    # profiler windows follow phase trace as they always have
+    phase_configs(PL)
     return launches, worst, timing, dh_err
 
 

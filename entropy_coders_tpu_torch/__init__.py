@@ -22,8 +22,10 @@ the reference it is held against.
   says where it and ``native`` build;
 * ``native``    — the C++ host codec (tables, header I/O, lane repack),
   built with g++ at first use; ``normalize`` and ``constants`` beside it;
-* ``tools``     — the decode table-layout measurement scripts and their
-  kernel (``python -m entropy_coders_tpu_torch.tools.l10_attack``).
+* ``tools``     — the measurement scripts: the decode table-layout
+  experiments and their kernel (``tools.l10_attack``), the kernels at
+  their launch shapes, BASELINE's configs 1-6 (``tools.bench_configs``)
+  and the table-log policy sweep (``tools.policy_sweep``).
 
 It imports ``torch`` and never ``jax``, and nothing of the JAX package: the
 parts it needs that import no jax (``normalize``, ``native``,

@@ -1,16 +1,25 @@
 """Measurement tools of the port: the decode table-layout harness, the
-per-lane kernels at their launch shapes (``lane_shapes``) and the lane
-repack and table build on the card (``device_host``).
+per-lane kernels at their launch shapes (``lane_shapes``), the lane
+repack and table build on the card (``device_host``), and the root
+scripts' corpora, configs and table-log policy sweep.
 
-Counterparts of the JAX package's ``tools/l10_attack.py``,
-``tools/l10_attack_harness.py``, ``tools/upack_l10.py`` and
-``tools/upack_hilog.py``:
+Counterparts of the JAX repository's ``tools/l10_attack.py``,
+``tools/l10_attack_harness.py``, ``tools/upack_l10.py``,
+``tools/upack_hilog.py`` and the root ``bench_configs.py`` and
+``policy_sweep.py``:
 
-* ``bench_data``         — the bench corpus, frame parsing, a CUDA timer;
+* ``bench_data``         — the bench corpus, frame parsing (every block, or
+  the blocks the JAX decode-rate helper selects), a CUDA timer;
 * ``l10_attack_harness`` — ``decode_lanes_layout``: B1's lane decode with a
   pluggable table entry format (kernel ``csrc/pl_decode_layout.cu``);
 * ``l10_attack``, ``upack_l10``, ``upack_hilog`` — the scripts, each run as
   ``python -m entropy_coders_tpu_torch.tools.<name> [L]`` on a CUDA machine;
+* ``bench_configs``      — the stand-in corpora (the text ones read the
+  checkout's root files), BASELINE configs 1-6 and B1's decode-rate timer
+  ``device_decode_gbps``: ``python -m ...tools.bench_configs [1..6]``;
+* ``policy_sweep``       — B1's rate per table log and each table-log
+  policy's ratio, chosen logs and effective rate per corpus:
+  ``python -m ...tools.policy_sweep``;
 * ``device_host``        — kernels D1-D3 (``csrc/repack.cu``,
   ``csrc/tables.cu``) against their plain versions and the C++ host
   library, and timed beside the C++ calls.

@@ -41,7 +41,7 @@ from ..frame import compress
 from ..ops import pl_coder as PL
 from ..ops.unsigned import to_device
 from . import l10_attack_harness as H
-from .bench_data import cuda_ms, gen_sequence, parse_pl_frame
+from .bench_data import cuda_ms, gen_sequence, pl_blocks
 
 MIB = 1 << 20
 BLOCK = 16 * MIB
@@ -50,36 +50,53 @@ K = 16384
 
 class LaneInputs(NamedTuple):
     """A frame's lanes on one device, ready for the decode kernels."""
-    data: np.ndarray         # the raw bytes (full blocks)
-    frame: bytes             # the port's MODE_FSE_PL frame of ``data``
+    data: np.ndarray         # the raw bytes of these blocks
+    frame: bytes             # the port's MODE_FSE_PL frame they come from
     words: torch.Tensor      # (B, W, k) uint32 lane words
     sizes: torch.Tensor      # (B, k) int32 lane sizes in bits
     dec: torch.Tensor        # (B, 2^L) uint32 flat decode tables
     norm_tables: np.ndarray  # (B, 256) int32
     L: int
     R: int
+    ids: np.ndarray          # (B,) the blocks' indices in the frame
+    n_blocks: int            # blocks in the frame
+
+
+def frame_lanes(frame: bytes, data, *, block_size: int, k: int,
+                device="cuda", select: bool = False) -> LaneInputs:
+    """Lay the per-lane blocks of ``frame``, the frame of ``data``, out as
+    B1 takes them: every block (``select=False``; the frame must be all
+    MODE_FSE_PL of one table log) or those the JAX decode-rate helper
+    selects (``select=True``, ``bench_data.pl_blocks``). The JAX tool's
+    parse and ``lane_split_batch``; ``data`` keeps those blocks' bytes."""
+    blk = pl_blocks(frame, block_size, k, select=select)
+    W = -(-(int(blk.sizes.max()) // 32 + 3) // 16) * 16
+    words = PL.lane_split_batch(blk.payloads, blk.sizes, k, W,
+                                pack_bits=blk.bit_packed)
+    full = len(data) // block_size
+    raw = np.asarray(data, np.uint8)[: full * block_size].reshape(
+        full, block_size)[blk.ids].reshape(-1)
+    dev = torch.device(device)
+    return LaneInputs(raw, frame, to_device(words, dev),
+                      torch.from_numpy(blk.sizes).to(dev),
+                      PL.tables_from_norm(blk.norm_tables, blk.L, dev).dec,
+                      blk.norm_tables, blk.L, block_size // k - 1, blk.ids,
+                      blk.n_blocks)
 
 
 def lane_inputs(data: np.ndarray, L: int, *, block_size: int = BLOCK,
                 k: int = K, device="cuda") -> LaneInputs:
     """Compress ``data`` (whole blocks) at table log ``L`` on ``device`` and
-    lay its lanes out as B1 takes them (the JAX tool's parse and
-    ``lane_split_batch``)."""
+    lay its lanes out as B1 takes them (``frame_lanes``)."""
     if len(data) == 0 or len(data) % block_size:
         raise ValueError(f"{len(data)} bytes are not whole {block_size}-byte "
                          "blocks")
     frame = compress(data, block_size=block_size, k=k, lanes=True,
                      table_log=L, device=device)
-    sizes, payloads, nt, L2, packed = parse_pl_frame(frame, block_size, k)
-    if L2 != L:
-        raise ValueError(f"the frame has table log {L2}, not {L}")
-    W = -(-(int(sizes.max()) // 32 + 3) // 16) * 16
-    words = PL.lane_split_batch(payloads, sizes, k, W, pack_bits=packed)
-    dev = torch.device(device)
-    return LaneInputs(data, frame, to_device(words, dev),
-                      torch.from_numpy(sizes).to(dev),
-                      PL.tables_from_norm(nt, L, dev).dec, nt, L,
-                      block_size // k - 1)
+    inp = frame_lanes(frame, data, block_size=block_size, k=k, device=device)
+    if inp.L != L:
+        raise ValueError(f"the frame has table log {inp.L}, not {L}")
+    return inp
 
 
 def _require(cond, what: str) -> None:

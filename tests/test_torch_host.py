@@ -4,7 +4,8 @@ of the C++ codec) and its ``normalize`` against the JAX package's
 CPU. Tolerance: exact, byte for byte (integer codec, no rounding).
 
 Also a source scan: no module of the port and not ``chip_smoke.py`` imports
-the JAX package."""
+the JAX package, jax, or the root scripts ``bench``, ``bench_configs`` and
+``policy_sweep``."""
 
 import ast
 from pathlib import Path
@@ -170,6 +171,12 @@ def _port_sources():
         ROOT / "chip_smoke.py"]
 
 
+# the JAX package, jax itself, and the root scripts that import them (the
+# port's tools keep their own copies of what they need from those)
+_FORBIDDEN = {"entropy_coders_tpu", "jax", "bench", "bench_configs",
+              "policy_sweep"}
+
+
 def _imports_jax_package(tree) -> list:
     bad = []
     for node in ast.walk(tree):
@@ -183,8 +190,7 @@ def _imports_jax_package(tree) -> list:
               and node.args and isinstance(node.args[0], ast.Constant)):
             names = [str(node.args[0].value)]
         bad += [(node.lineno, n) for n in names
-                if n == "entropy_coders_tpu"
-                or n.startswith("entropy_coders_tpu.")]
+                if n.split(".")[0] in _FORBIDDEN]
     return bad
 
 
@@ -198,7 +204,10 @@ def test_source_scan_finds_an_import():
     """The scan above sees every form it looks for."""
     src = ("import entropy_coders_tpu\nfrom entropy_coders_tpu.spec import x\n"
            "import entropy_coders_tpu_torch\nfrom . import native\n"
-           "importlib.import_module('entropy_coders_tpu.native')\n")
-    assert [n for _, n in _imports_jax_package(ast.parse(src))] == [
-        "entropy_coders_tpu", "entropy_coders_tpu.spec",
-        "entropy_coders_tpu.native"]
+           "importlib.import_module('entropy_coders_tpu.native')\n"
+           "import jax.numpy\nfrom bench_configs import corpus\n"
+           "from .bench_configs import corpus\nimport policy_sweep, bench\n")
+    assert sorted(n for _, n in _imports_jax_package(ast.parse(src))) == [
+        "bench", "bench_configs", "entropy_coders_tpu",
+        "entropy_coders_tpu.native", "entropy_coders_tpu.spec", "jax.numpy",
+        "policy_sweep"]

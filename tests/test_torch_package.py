@@ -6,7 +6,9 @@ sharded and not and on the device-repack route, builds tables with
 with the layout harness and with the JAX-signature ``ops.decode_lanes``,
 counts bytes with ``ops.histogram.histogram_u8``, streams a file,
 round-trips a checkpoint and an interleaved payload (its tables from the
-port's own host library) must not have loaded jax (the machine with the
+port's own host library), builds the config tool's corpora (bf16 through
+torch, without ``ml_dtypes``) and a policy's chosen logs must not have
+loaded jax (the machine with the
 card has none). The JAX package is blocked in ``sys.modules`` before the
 port is imported, so any import of it fails the probe.
 
@@ -124,6 +126,14 @@ assert decode_interleaved(payload, 4, dec, l2, 3000,
 assert checked.checked_encode_interleaved(
     data[:3000], 4, enc, l2, device="cpu")[0] == payload
 assert cli._parse_table_log("fast:0.5") == ("fast", 0.5)
+from entropy_coders_tpu_torch.tools import bench_configs, policy_sweep
+corpora = bench_configs.Corpora()
+assert len(bench_configs.bf16_tensor_bytes(5000)) == 5000
+assert "ml_dtypes" not in sys.modules  # bf16 through torch
+assert corpora.get("text", 3000).size == 3000
+assert len(policy_sweep.chosen_logs(corpora.get("geo", 8192),
+                                    {"block_size": 4096, "k": 128},
+                                    "auto")) == 2
 mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or (m.startswith("entropy_coders_tpu") and sys.modules[m]
                   and not m.startswith("entropy_coders_tpu_torch")))
