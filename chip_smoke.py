@@ -91,8 +91,24 @@ geo, bf16 and jsonlog as BASELINE.md gives them to 4 places, each
 decode-rate timer call's B1 launches as the timer counted them; then
 B1's rate at L = 8 on each corpus beside the sweep's per-L rates on geo,
 and the same frames retaken in turns, with and without the spin that
-hides the host's launches.
-Then it
+hides the host's launches. Phase ``bench`` (after ``configs``) runs the
+root ``bench.py``'s counterpart, ``python -m
+entropy_coders_tpu_torch.tools.bench``, as a subprocess (a fresh
+process's cold start, the libraries already built): its two lines must
+say ``"backend": "cuda"``, frames of 61,729,231 and 60,779,273 bytes and
+a parity ratio at or under 0.4530 (the bench itself holds B1's and B2's
+outputs exactly against the frames before it times them, one call over
+all eight 16 MiB blocks); both lines are printed beside the card. It
+then takes over ``tests/tpu_smoke.py``'s big-block check: (512 KiB + 321)
+bytes at k=8192, per-lane, compressed on the card, equal byte for byte
+to the same compress on the CPU's plain versions, and round-tripped.
+Phase ``graft`` runs the root ``__graft_entry__.py``'s counterpart
+(``tools.graft_entry``): ``entry("cuda")``'s four outputs equal
+``entry("cpu")``'s, the block round-trips through the same cores, and
+``dryrun_multichip`` passes over every card and over four virtual ranks
+of card 0, its frames equal byte for byte to the plain versions' on the
+CPU at the knobs the card resolves (``lanes`` unset is per-lane on CUDA,
+as on the JAX package's TPU). Then it
 drives the multi-device path (``entropy_coders_tpu_torch.parallel``):
 
 * ``ring``: B3 against its plain version on virtual ranks, a mesh that
@@ -1201,6 +1217,95 @@ def phase_configs(PL):
                                for name, r in rows.items()},
          sweep_rates_geo={c: {str(L): g for L, g in r.items()}
                           for c, r in sweep["rates"].items()})
+
+
+def phase_bench(T, gg, card):
+    """The port's bench (``tools.bench``), the root ``bench.py``'s
+    counterpart, as a subprocess, so that its cold start is a fresh
+    process's (the libraries are built by now: ``cold_start_s`` shows a
+    load): its two lines parsed and checked (``"backend": "cuda"``, the
+    frames of 61,729,231 and 60,779,273 bytes, the parity ratio at or
+    under 0.4530) and printed beside the card. Then
+    ``tests/tpu_smoke.py``'s big-block check: (512 KiB + 321) bytes at
+    k=8192, per-lane, compressed on the card equal to the same compress on
+    the CPU's plain versions byte for byte, and round-tripped."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m",
+                        "entropy_coders_tpu_torch.tools.bench"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    bench_s = time.perf_counter() - t0
+    check(p.returncode == 0, f"the bench exited {p.returncode}:\n"
+          f"{p.stderr[-4000:]}")
+    line1 = json.loads(p.stdout.strip().splitlines()[-1])
+    line2 = [json.loads(ln) for ln in p.stderr.splitlines()
+             if ln.startswith("{")][-1]
+    check(line2["backend"] == "cuda", f"bench backend {line2['backend']}")
+    check(line2["compressed_bytes"] == THROUGHPUT_BYTES,
+          f"bench throughput frame {line2['compressed_bytes']} bytes")
+    check(line2["parity"]["compressed_bytes"] == PARITY_BYTES,
+          f"bench parity frame {line2['parity']['compressed_bytes']} bytes")
+    check(line1["parity_ratio"] <= REFERENCE_RATIO,
+          f"bench parity ratio {line1['parity_ratio']}")
+    t0 = time.perf_counter()
+    data = gg.gen_sequence(0.2, (512 << 10) + 321, 77)
+    kw = dict(block_size=512 << 10, k=8192, lanes=True)
+    real = T.compress(data, device="cuda", **kw)
+    check(real == T.compress(data, device="cpu", **kw),
+          "big-block: the card's frame differs from the plain versions'")
+    check(T.decompress(real, device="cuda") == data.tobytes(),
+          "big-block: the card's round trip")
+    emit("bench", card=card, bench_s=bench_s, line1=line1, line2=line2,
+         big_block={"input_bytes": len(data), "frame_bytes": len(real),
+                    "equal_to_plain": True,
+                    "seconds": time.perf_counter() - t0})
+
+
+def dryrun_plain(G, n):
+    """``dryrun_multichip(n)``'s frames as the plain versions write them on
+    the CPU, unsharded. On a CUDA mesh ``lanes`` unset means per-lane (the
+    JAX package's TPU default), which sets the table log of the frames that
+    leave it unset, so the CPU is given ``lanes=True`` too."""
+    from entropy_coders_tpu_torch import compress
+
+    data = G.dryrun_data(n)
+    return {name: compress(data, block_size=G.DRYRUN_BLOCK, device="cpu",
+                           **{"lanes": True, **kw})
+            for name, kw in G.DRYRUN_FRAMES}
+
+
+def phase_graft():
+    """The root ``__graft_entry__.py``'s counterpart (``tools.graft_entry``)
+    on the card: ``entry("cuda")``'s four outputs equal ``entry("cpu")``'s,
+    the block round-trips exactly through the same cores
+    (``block_roundtrip``), and ``dryrun_multichip`` passes over every card
+    and over four virtual ranks of card 0, its four frames equal byte for
+    byte to the plain versions' (``dryrun_plain``)."""
+    import torch
+
+    from entropy_coders_tpu_torch.tools import graft_entry as G
+
+    t0 = time.perf_counter()
+    fn, args = G.entry("cuda")
+    got = fn(*args)
+    cfn, cargs = G.entry("cpu")
+    want = cfn(*cargs)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "entry: the card's outputs differ from the plain run's")
+    data = G.example_block(device="cpu")[1]["data"]
+    check(G.block_roundtrip("cuda") == data.tobytes(),
+          "entry: the block's round trip")
+    n = torch.cuda.device_count()
+    cards = G.dryrun_multichip(n)
+    check(cards == dryrun_plain(G, n),
+          "dryrun: the cards' frames differ from the plain versions'")
+    virtual = G.dryrun_multichip(4, mesh=(torch.device("cuda", 0),) * 4)
+    check(virtual == dryrun_plain(G, 4),
+          "dryrun: the virtual ranks' frames differ from the plain versions'")
+    emit("graft", entry_shapes=[list(g.shape) for g in got],
+         dryrun_cards=n, dryrun_frames={k: len(v) for k, v in cards.items()},
+         virtual_ranks=4,
+         virtual_frames={k: len(v) for k, v in virtual.items()},
+         seconds=time.perf_counter() - t0)
 
 
 _SASS_LAT = {}
@@ -2452,6 +2557,9 @@ def run_single(T, PL, gg, data, card):
     # the root scripts' measurements: after the timed phases, so that their
     # profiler windows follow phase trace as they always have
     phase_configs(PL)
+    # the root bench.py and __graft_entry__.py on the port
+    phase_bench(T, gg, card)
+    phase_graft()
     return launches, worst, timing, dh_err
 
 

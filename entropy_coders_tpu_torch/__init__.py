@@ -24,8 +24,10 @@ the reference it is held against.
   built with g++ at first use; ``normalize`` and ``constants`` beside it;
 * ``tools``     — the measurement scripts: the decode table-layout
   experiments and their kernel (``tools.l10_attack``), the kernels at
-  their launch shapes, BASELINE's configs 1-6 (``tools.bench_configs``)
-  and the table-log policy sweep (``tools.policy_sweep``).
+  their launch shapes, BASELINE's configs 1-6 (``tools.bench_configs``),
+  the table-log policy sweep (``tools.policy_sweep``), the root bench's
+  two lines (``tools.bench``) and the one-block and mesh dry runs
+  (``tools.graft_entry``).
 
 It imports ``torch`` and never ``jax``, and nothing of the JAX package: the
 parts it needs that import no jax (``normalize``, ``native``,

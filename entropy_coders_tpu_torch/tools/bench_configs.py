@@ -49,9 +49,9 @@ from ..builddir import is_checkout
 from ..frame import _tl, compress, decompress
 from ..ops import pl_coder as PL
 from ..ops.coder import decode_interleaved, encode_interleaved
-from ..ops.unsigned import resolve_device
+from ..ops.unsigned import resolve_device, to_numpy
 from ..parallel import block_sharding, default_mesh
-from .bench_data import cuda_ms, gen_sequence
+from .bench_data import cuda_ms, gen_sequence, pl_blocks
 from .l10_attack import frame_lanes
 
 MIB = 1 << 20
@@ -246,21 +246,19 @@ def device_decode_gbps(frame: bytes, block_size: int, k: int, *, data,
     JAX helper selects (MODE_FSE_PL, the shared table when there is one,
     the first such block's table log; ``bench_data.pl_blocks``) laid out as
     B1 takes them, (B, W, k) words, (B, k) sizes and (B, 2^L) tables, and
-    one ``pl_coder.decode_call`` over all of them timed by
-    ``bench_data.cuda_ms``: ``runs`` runs of ``reps`` calls, each run
-    queued behind a spin of ``HOLD_CYCLES`` so that the calls run back to
-    back (the JAX helper takes the marginal time of 24 pipelined calls
-    for the same reason); then one more batch of ``reps`` calls on the
-    host clock gives the host's time to queue a call. Every cursor must
-    drain to 0 and the symbols must equal ``data``'s bytes, or it raises
-    RuntimeError. Raises without CUDA: a rate is a device number."""
+    one ``pl_coder.decode_call`` over all of them timed by ``held_ms``:
+    ``runs`` runs of ``reps`` calls, each run queued behind a spin of
+    ``HOLD_CYCLES`` so that the calls run back to back (the JAX helper
+    takes the marginal time of 24 pipelined calls for the same reason),
+    and the host's time to queue a call. Every cursor must drain to 0 and
+    the symbols must equal ``data``'s bytes (``check_decoded``), or it
+    raises RuntimeError. Raises without CUDA: a rate is a device number."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"device_decode_gbps times B1 on a CUDA device, "
                          f"not {dev}")
     inp = frame_lanes(frame, data, block_size=block_size, k=k, device=dev,
                       select=True)
-    B = inp.words.shape[0]
     calls = [0]
 
     def call():
@@ -268,24 +266,129 @@ def device_decode_gbps(frame: bytes, block_size: int, k: int, *, data,
         return PL.decode_call(inp.words, inp.sizes, inp.dec, L=inp.L,
                               R=inp.R)
 
-    syms, finals, cursors = call()
-    _require(not bool(cursors.any()), "device_decode_gbps: a cursor did not "
-             "drain to 0")
-    want = torch.from_numpy(inp.data).to(dev).reshape(B, inp.R + 1, k)
-    _require(torch.equal(syms, want[:, :inp.R])
-             and torch.equal(finals, want[:, inp.R]),
-             "device_decode_gbps: decoded bytes differ from the input")
-    del syms, finals, cursors, want
-    ms, runs_ms = cuda_ms(call, runs=runs, reps=reps,
-                          hold_cycles=HOLD_CYCLES)
-    torch.cuda._sleep(HOLD_CYCLES)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        call()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3 / reps
-    torch.cuda.synchronize(dev)
+    check_decoded(inp, call())
+    ms, runs_ms, enqueue_ms = held_ms(call, dev, runs=runs, reps=reps)
+    B = inp.words.shape[0]
     return DecodeRate(B * block_size / ms / 1e6, ms, runs_ms, enqueue_ms,
                       inp.L, B, inp.n_blocks, calls[0])
+
+
+def check_decoded(inp, out) -> None:
+    """Raise RuntimeError unless ``out``, B1's (or its plain version's)
+    (syms, finals, cursors) on ``inp`` (``l10_attack.frame_lanes``), has
+    every cursor drained to 0 and gives ``inp.data`` back byte for byte."""
+    syms, finals, cursors = out
+    B, _, k = inp.words.shape
+    _require(not bool(cursors.any()), "the decode: a cursor did not drain "
+             "to 0")
+    want = torch.from_numpy(inp.data).to(syms.device).reshape(B, inp.R + 1,
+                                                              k)
+    _require(torch.equal(syms, want[:, :inp.R])
+             and torch.equal(finals, want[:, inp.R]),
+             "the decode: decoded bytes differ from the input")
+
+
+def held_ms(call, dev, *, runs: int, reps: int):
+    """(median ms a call, every run's ms a call, host ms to queue a call)
+    of ``call`` on CUDA device ``dev``: ``bench_data.cuda_ms`` with
+    ``reps`` calls a run, each run queued behind a spin of
+    ``HOLD_CYCLES``; then one more batch of ``reps`` calls, queued behind
+    a spin, on the host clock."""
+    with torch.cuda.device(dev):
+        ms, runs_ms = cuda_ms(call, runs=runs, reps=reps,
+                              hold_cycles=HOLD_CYCLES)
+        torch.cuda._sleep(HOLD_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize(dev)
+    return ms, runs_ms, enqueue_ms
+
+
+class EncodeInputs(NamedTuple):
+    """A frame's blocks as B2 takes them, and what B2 must give back."""
+    blocks: torch.Tensor       # (B, block_size) uint8 raw bytes
+    tables: PL.LaneTables      # the encode half of the frame's tables
+    L: int
+    W: int                     # word rows: encode_w_bound(R, L)
+    sizes: np.ndarray          # (B, k) the frame's lane sizes in bits
+    payloads: list             # the frame's B wire payloads
+    bit_packed: bool
+
+
+def encode_inputs(frame: bytes, data, block_size: int, k: int,
+                  device) -> EncodeInputs:
+    """``frame``'s blocks (all MODE_FSE_PL, each with its own table, one
+    table log: ``bench_data.pl_blocks``), ``data``'s bytes, and the encode
+    half of their tables built on ``device``."""
+    blk = pl_blocks(frame, block_size, k)
+    dev = torch.device(device)
+    raw = np.asarray(data, np.uint8)[: len(blk.ids) * block_size]
+    return EncodeInputs(
+        torch.from_numpy(raw.reshape(-1, block_size)).to(dev),
+        PL.tables_from_norm(blk.norm_tables, blk.L, dev, half="encode"),
+        blk.L, PL.encode_w_bound(block_size // k - 1, blk.L), blk.sizes,
+        blk.payloads, blk.bit_packed)
+
+
+def encode_call(inp: EncodeInputs):
+    """One ``pl_coder.encode_call`` over all of ``inp``'s blocks."""
+    return PL.encode_call(inp.blocks, inp.tables, k=inp.sizes.shape[1],
+                          L=inp.L, W=inp.W)
+
+
+def check_encoded(inp: EncodeInputs, out) -> None:
+    """Raise RuntimeError unless ``out``, B2's (or its plain version's)
+    (words, sizes) on ``inp``, gives the frame's lane sizes and, merged by
+    the host library (``pl_coder.lane_merge_batch``, the frame's wire
+    form), the frame's payloads byte for byte."""
+    words, sizes = out
+    _require(np.array_equal(sizes.cpu().numpy(), inp.sizes),
+             "the encode: lane sizes differ from the frame's")
+    merged = PL.lane_merge_batch(to_numpy(words), inp.sizes,
+                                 inp.bit_packed)
+    _require(merged == [bytes(p) for p in inp.payloads],
+             "the encode: merged lanes differ from the frame's payloads")
+
+
+class EncodeRate(NamedTuple):
+    """B2's rate on a frame's blocks (``device_encode_gbps``)."""
+    GBps: float        # raw bytes encoded over the median time
+    ms: float          # median device time of one B2 call (CUDA events)
+    runs_ms: list      # every run's time a call
+    enqueue_ms: float  # host time to queue one call (host clock)
+    L: int             # the table log of the blocks
+    blocks: int        # blocks one call encodes
+    launches: int      # B2 calls this timer made (each one launch)
+
+
+def device_encode_gbps(frame: bytes, data, block_size: int, k: int, *,
+                       device="cuda", runs: int = 7,
+                       reps: int = 24) -> EncodeRate:
+    """B2's encode rate at ``frame``'s tables: ``frame``'s blocks, the
+    encode half of their tables built on the card, and one
+    ``pl_coder.encode_call`` over all of them into
+    ``encode_w_bound(R, L)`` word rows, held exactly against the frame
+    (``check_encoded``: RuntimeError otherwise), then timed as
+    ``device_decode_gbps`` times B1 (``held_ms``). Raises without CUDA:
+    a rate is a device number."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"device_encode_gbps times B2 on a CUDA device, "
+                         f"not {dev}")
+    inp = encode_inputs(frame, data, block_size, k, dev)
+    calls = [0]
+
+    def call():
+        calls[0] += 1
+        return encode_call(inp)
+
+    check_encoded(inp, call())
+    ms, runs_ms, enqueue_ms = held_ms(call, dev, runs=runs, reps=reps)
+    B = inp.blocks.shape[0]
+    return EncodeRate(B * block_size / ms / 1e6, ms, runs_ms, enqueue_ms,
+                      inp.L, B, calls[0])
 
 
 def _rate_fields(rate: DecodeRate, key: str) -> dict:

@@ -7,8 +7,9 @@ with the layout harness and with the JAX-signature ``ops.decode_lanes``,
 counts bytes with ``ops.histogram.histogram_u8``, streams a file,
 round-trips a checkpoint and an interleaved payload (its tables from the
 port's own host library), builds the config tool's corpora (bf16 through
-torch, without ``ml_dtypes``) and a policy's chosen logs must not have
-loaded jax (the machine with the
+torch, without ``ml_dtypes``) and a policy's chosen logs, and imports the
+bench and the graft entry and round-trips the graft entry's block must not
+have loaded jax (the machine with the
 card has none). The JAX package is blocked in ``sys.modules`` before the
 port is imported, so any import of it fails the probe.
 
@@ -134,6 +135,10 @@ assert corpora.get("text", 3000).size == 3000
 assert len(policy_sweep.chosen_logs(corpora.get("geo", 8192),
                                     {"block_size": 4096, "k": 128},
                                     "auto")) == 2
+from entropy_coders_tpu_torch.tools import bench, graft_entry
+assert bench.card_name(torch.device("cpu")) == "cpu"
+assert graft_entry.block_roundtrip("cpu") == graft_entry.example_block(
+    device="cpu")[1]["data"].tobytes()
 mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or (m.startswith("entropy_coders_tpu") and sys.modules[m]
                   and not m.startswith("entropy_coders_tpu_torch")))
