@@ -15,9 +15,12 @@ their plain versions and the port's C++ host library, exactly
 zero-size and one-byte lanes, sizes on a word boundary, guard bits; D3 in
 each half at L = 5..15 and every cluster size its wrapper can pick there,
 tables with -1 counts, 512 tables, equal rows). The main path's D3
-launches are checked exactly: one a lane group a direction, 2 / 2 / 3 a
-round trip at the throughput / parity / default points and 27 with the
-goldens. Phase ``routes``
+launches are checked exactly: one a table-log group a direction, 2 / 2 / 5
+a round trip at the throughput / parity / default points and 33 with the
+goldens; so are D4's and D5's (the shared-stream coder,
+``ect_fse_encode`` / ``ect_fse_decode``: the default point's ragged tail
+and the golden ``frame_pl_crc``'s, 3 each), and no plain shared-stream
+core may run on a CUDA tensor. Phase ``routes``
 runs the throughput, parity and default points with the repack on the card
 and in C++ and with the tables built on the card and on the host, in turns,
 wall times side by side, every frame's bytes and each route's launch counts
@@ -52,6 +55,25 @@ back; a corrupted lane size raises ValueError; each call launches exactly
 one B2 or B1. Each entry's host and CUDA-event times stand beside those
 of the wrapper call it makes, on device-resident inputs. It runs after
 the main path's launch counts are read.
+Phase ``shared_stream`` (after ``lane_entries``) holds D4 and D5
+(``csrc/fse_coder.cu``) against their plain versions on the same CUDA
+tensors, exactly: k in {1, 2, 3, 4, 33, 127, 256, 777, 1000, 1024, 2000}
+(the main path's two tail shapes among them), L in {5, 7, 8, 11, 12, 15},
+blocks with tables of their own, padding slots, clean
+round trips and seven corrupted or truncated decodes (all five outputs),
+and the error words of ``checked=True`` (the plain checked versions'
+messages). Then the 128 MiB data at 128 KiB blocks with ``lanes=False``
+at k = 1024 and k = 2 (every block MODE_FSE): compress and decompress,
+cold and warm, each frame's bytes and sha256 equal to the JAX package's
+(``SHARED_STREAM``), one D4, D5 and two D3 launches a round trip and no
+B1, B2, D1 or D2; D4 and D5 at each point's launch shape by CUDA events
+(the launcher alone and a wrapper call) beside the bound, the larger of
+the bytes over 3.35 TB/s and a floor of one round's dependent chain
+under the card's measured latencies times the rounds; the wrappers
+against the plain versions on the same CUDA tensors, exactly, at k = 1024
+on the whole launch shape and at k = 2 on its first two blocks at all
+65,535 rounds, each plain version's time beside the kernel's; the C++ host
+codec at k = 2.
 Phase ``layouts`` drives the decode table-layout tools
 (``entropy_coders_tpu_torch.tools``, kernels B4/B5): ``l10_attack.run`` at
 L=10 on the 128 MiB data and ``upack_hilog.run`` at L=11 and 13 (64 MiB,
@@ -425,11 +447,37 @@ def phase_goldens(T, gg):
 
 
 def _launch_counts_all():
-    """The launch counts of B1, B2 and D1-D3 as they stand."""
+    """The launch counts of B1, B2, D1-D3 and D4/D5 as they stand."""
+    from entropy_coders_tpu_torch.ops import coder as C
     from entropy_coders_tpu_torch.ops import pl_coder as PL
 
     return {"decode": PL.DECODE_LAUNCHES, "encode": PL.ENCODE_LAUNCHES,
-            **_device_host_counts()}
+            **_device_host_counts(), "fse_encode": C.ENCODE_LAUNCHES,
+            "fse_decode": C.DECODE_LAUNCHES}
+
+
+@contextlib.contextmanager
+def plain_cores_on_cuda(counts: dict):
+    """While open, every call of the shared-stream cores' plain versions
+    (``ops.coder.encode_core_ref``/``decode_core_ref``) on CUDA tensors
+    adds one to ``counts``: the wrappers must never take them there."""
+    from entropy_coders_tpu_torch.ops import coder as C
+
+    saved = C.encode_core_ref, C.decode_core_ref
+
+    def counted(name, fn):
+        def call(first, *args, **kwargs):
+            if first.device.type == "cuda":
+                counts[name] = counts.get(name, 0) + 1
+            return fn(first, *args, **kwargs)
+        return call
+
+    C.encode_core_ref = counted("encode_core_ref", saved[0])
+    C.decode_core_ref = counted("decode_core_ref", saved[1])
+    try:
+        yield counts
+    finally:
+        C.encode_core_ref, C.decode_core_ref = saved
 
 
 def roundtrip(T, data, **kw):
@@ -455,17 +503,28 @@ def roundtrip(T, data, **kw):
     return frame, times
 
 
-# D3 launches a 128 MiB round trip: one a lane group a direction (the
-# default point's uniform block is a table-log group of its own on compress,
-# then stored RAW); with the five golden frames' 13, the main path's 27
-D3_LAUNCHES = {"throughput": 2, "parity": 2, "default": 3}
-D3_MAIN_PATH = 13 + 2 * sum(D3_LAUNCHES.values())
+# D3 launches a 128 MiB round trip: one a table-log group a direction, the
+# per-lane groups' and the shared-stream (MODE_FSE) groups' (the default
+# point's uniform block is a table-log group of its own on compress, then
+# stored RAW; its 777-byte tail is a MODE_FSE group, k = 777); with the five
+# golden frames' 15, the main path's 33
+D3_LAUNCHES = {"throughput": 2, "parity": 2, "default": 5}
+D3_MAIN_PATH = 15 + 2 * sum(D3_LAUNCHES.values())
+# D4 and D5 launches a round trip, each: one a MODE_FSE group a direction
+# (the default point's tail); with the golden frame_pl_crc's tail, 3 each
+FSE_LAUNCHES = {"throughput": 0, "parity": 0, "default": 1}
+FSE_MAIN_PATH = 1 + 2 * sum(FSE_LAUNCHES.values())
 
 
 def check_d3_launches(name, launches):
     check(launches["tables"] == D3_LAUNCHES[name],
           f"{name}: {launches['tables']} D3 launches a round trip, "
-          f"expected {D3_LAUNCHES[name]} (one a lane group a direction)")
+          f"expected {D3_LAUNCHES[name]} (one a table-log group a "
+          f"direction)")
+    for kind in ("fse_encode", "fse_decode"):
+        check(launches[kind] == FSE_LAUNCHES[name],
+              f"{name}: {launches[kind]} {kind} (D4/D5) launches a round "
+              f"trip, expected {FSE_LAUNCHES[name]}")
 
 
 def phase_point(T, name, data, expect_bytes, **kw):
@@ -2493,6 +2552,470 @@ def multihost_worker(port: int, num: int, rank: int) -> int:
     return 0
 
 
+# --- the shared-stream coder (D4, D5) -----------------------------------------
+
+# The shared-stream points: the 128 MiB bench data at 128 KiB blocks with
+# lanes=False, so that every block takes MODE_FSE through D4/D5 (one
+# table-log group of 1,024 blocks at L = 11). Bytes and sha256 of the frames
+# the JAX package writes for the same input and knobs
+# (entropy_coders_tpu.frame.compress on the CPU).
+SHARED_STREAM = {
+    "fse_default": (dict(block_size=128 * 1024, k=1024, lanes=False),
+                    61_567_232, "4775558baa0893e72a6185e799c1c3200cd61e618a6a"
+                    "8c3dc3eac57491323015"),
+    "fse_k2": (dict(block_size=128 * 1024, k=2, lanes=False), 60_663_243,
+               "4180f3c493eb240a9c1c57f2e760fcf472cb9c3a4a0e2935a2ec765aec7f"
+               "3b6d"),
+}
+# D4/D5 against their plain versions on the card: (k, L, bytes a block,
+# blocks, alphabet), every k and table log of the kernels' range that
+# matters (one lane a thread up to 1,024 lanes, two past it), each block
+# its own table, padding slots wherever n - k is not a multiple of k; the
+# main path's own launch shapes last: the default point's 777-byte tail (k
+# = n = 777, L = 7, one round of padding slots only) and golden
+# frame_pl_crc's (k = 256, L = 7)
+SS_CASES = [(1, 12, 1025, 2, 64), (2, 5, 1501, 2, 20), (3, 8, 1000, 2, 256),
+            (4, 11, 2051, 3, 256), (33, 15, 33 * 40 + 7, 2, 256),
+            (127, 11, 127 * 20 + 5, 2, 256), (1000, 8, 1000 * 8 + 13, 2, 256),
+            (1024, 12, 1024 * 6, 2, 256), (2000, 15, 2000 * 5 + 77, 2, 256),
+            (777, 7, 777, 1, 24), (256, 7, 777, 1, 24)]
+SS_CORRUPT = ("flip", "flip_many", "truncated", "zeroed_top", "short",
+              "past_words", "marker_off")
+# the blocks of a point's launch shape the plain versions run on, at the
+# full round count: all 1,024 at k = 1024 (127 rounds), the first two at
+# k = 2 (65,535 rounds of ~50 small torch ops, ~1 s of plain loop a
+# thousand rounds whatever the blocks)
+SS_PLAIN_BLOCKS = {"fse_default": 1024, "fse_k2": 2}
+
+
+def _ss_norm(rng, B: int, L: int, alphabet: int):
+    """B valid normalizations to 2^L slots over ``alphabet`` of the 256
+    symbols (a few at -1), each block its own."""
+    import numpy as np
+
+    size = 1 << L
+    a = min(alphabet, size)
+    nt = np.zeros((B, 256), np.int32)
+    for b in range(B):
+        sym = rng.choice(256, a, replace=False)
+        counts = 1 + rng.multinomial(size - a, rng.dirichlet(np.ones(a)))
+        counts[(rng.random(a) < 0.1) & (counts == 1)] = -1
+        nt[b, sym] = counts
+    return nt
+
+
+def _ss_inputs(blocks, nt, k: int, L: int):
+    """D4's and D5's inputs on the card for the host blocks (B, n) and their
+    normalized counts, the tables from the port's C++ build."""
+    import numpy as np
+    import torch
+
+    from entropy_coders_tpu_torch import native
+    from entropy_coders_tpu_torch.ops import coder as C
+    from entropy_coders_tpu_torch.ops.unsigned import to_device
+
+    n = blocks.shape[1]
+    m, R, valid, finish, W = C.encode_layout(n, k)
+    syms, init = C.blocks_to_syms(blocks, m, R, k)
+    table, tt_bits, tt_fs = native.build_encode_tables(nt, L)
+    dev = "cuda"
+    return {"k": k, "L": L, "m": m, "R": R, "W": W, "blocks": blocks,
+            "nt": nt,
+            "enc": (torch.from_numpy(np.ascontiguousarray(syms)).to(dev),
+                    torch.from_numpy(valid).to(dev),
+                    torch.from_numpy(np.ascontiguousarray(init)).to(dev),
+                    torch.from_numpy(finish).to(dev),
+                    (to_device(table, dev), to_device(tt_bits, dev),
+                     to_device(tt_fs, dev))),
+            "packed": to_device(native.build_decode_tables(nt, L), dev)}
+
+
+def _ss_decode_inputs(words, total):
+    """The container's decode inputs from an encode: the words (uint32) to
+    the payload's last byte plus two zero guard words; the start at the
+    marker bit."""
+    import torch
+
+    from entropy_coders_tpu_torch.ops.unsigned import signed_view
+
+    Wd = (int(total.max()) + 7) // 8
+    Wd = -(-Wd // 4) + 2
+    out = torch.zeros((words.shape[0], Wd), dtype=torch.int32,
+                      device=words.device)
+    w = min(Wd, words.shape[1])
+    out[:, :w] = signed_view(words[:, :w])
+    return out.view(torch.uint32), total - 1
+
+
+def _ss_diff(got, want) -> int:
+    return max(max_abs_diff(g, w) for g, w in zip(got, want))
+
+
+def _ss_corrupt(how, words, total, rng):
+    """A corrupted or truncated copy of the decode inputs."""
+    import torch
+
+    from entropy_coders_tpu_torch.ops.unsigned import as_int64, int64_to_u32
+
+    w = as_int64(words)
+    t = total.clone()
+    nbits = int(t.max())
+    if how == "flip":
+        for b in range(w.shape[0]):
+            bit = int(rng.integers(0, int(t[b])))
+            w[b, bit >> 5] ^= 1 << (bit & 31)
+    elif how == "flip_many":
+        w ^= torch.from_numpy((rng.random(tuple(w.shape)) < 0.05)
+                              .astype("int64") << 7).to(w.device)
+    elif how == "truncated":
+        t = t - nbits // 3
+    elif how == "zeroed_top":
+        w[:, nbits // 64:] = 0
+    elif how == "short":
+        t = torch.full_like(t, 3)
+    elif how == "past_words":
+        t = t + 32 * w.shape[1] + 5
+    else:
+        t = t + 1
+    return int64_to_u32(w), t
+
+
+def _ss_message(fn):
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def ss_kernel_cases() -> dict:
+    """D4 and D5 against ``encode_core_ref`` / ``decode_core_ref`` on the
+    same CUDA tensors, exactly: ``SS_CASES`` clean (round trip to the
+    blocks), each with the corrupted and truncated decodes of
+    ``SS_CORRUPT`` (all five outputs), and with an error word (a table too
+    small: D4's index check; words too short for the start: D5's bit
+    offset check), the message the plain checked version raises."""
+    import numpy as np
+    import torch
+
+    from entropy_coders_tpu_torch.ops import coder as C
+
+    rng = np.random.default_rng(BENCH_SEED + 14)
+    worst, rows = 0, []
+    for k, L, n, B, alphabet in SS_CASES:
+        nt = _ss_norm(rng, B, L, alphabet)
+        p = np.where(nt == -1, 1, nt).astype(np.float64)
+        blocks = np.stack([rng.choice(256, n, p=r / r.sum()) for r in p]
+                          ).astype(np.uint8)
+        inp = _ss_inputs(blocks, nt, k, L)
+        kw = dict(k=k, L=L, W=inp["W"])
+        words, total = C.encode_core(*inp["enc"], **kw)
+        rwords, rtotal = C.encode_core_ref(*inp["enc"], **kw)
+        err = _ss_diff((words, total), (rwords, rtotal))
+        dw, dt = _ss_decode_inputs(words, total)
+        R = inp["R"] + 1
+        got = C.decode_core(dw, dt, inp["packed"], k=k, L=L, R=R)
+        err = max(err, _ss_diff(got, C.decode_core_ref(dw, dt, inp["packed"],
+                                                       k=k, L=L, R=R)))
+        syms, emit, finals, done, _ = got
+        check(bool(done.all()) and bool((emit == inp["m"]).all()),
+              f"shared_stream k={k} L={L}: a clean decode did not finish")
+        back = torch.cat([syms.reshape(B, -1)[:, : inp["m"]], finals], 1)
+        check(bool((back.cpu().numpy() == blocks).all()),
+              f"shared_stream k={k} L={L}: round trip")
+        corrupt = {}
+        for how in SS_CORRUPT:
+            cw, ct = _ss_corrupt(how, dw, dt, rng)
+            got = C.decode_core(cw, ct, inp["packed"], k=k, L=L, R=R)
+            e = _ss_diff(got, C.decode_core_ref(cw, ct, inp["packed"], k=k,
+                                                L=L, R=R))
+            corrupt[how] = {"max_abs_err": e,
+                            "done": int(got[3].sum()),
+                            "emit": got[1].tolist()}
+            err = max(err, e)
+        # the error words: the plain checked versions' messages
+        syms_t, valid, init, finish, (table, tt_bits, tt_fs) = inp["enc"]
+        small = (table[:, : table.shape[1] // 4].contiguous(), tt_bits, tt_fs)
+        pairs = [(lambda f: f(syms_t, valid, init, finish, small, **kw,
+                              checked=True)),
+                 (lambda f: f(dw[:, :3].contiguous(), dt, inp["packed"], k=k,
+                              L=L, R=R, checked=True))]
+        msgs = [(_ss_message(lambda: fn(C.encode_core if i == 0
+                                        else C.decode_core)),
+                 _ss_message(lambda: fn(C.encode_core_ref if i == 0
+                                        else C.decode_core_ref)))
+                for i, fn in enumerate(pairs)]
+        check(all(a == b and a is not None for a, b in msgs),
+              f"shared_stream k={k} L={L}: checked messages {msgs}")
+        torch.cuda.synchronize()
+        check(err == 0, f"shared_stream k={k} L={L}: kernel != plain "
+              f"version by {err}")
+        worst = max(worst, err)
+        rows.append({"k": k, "L": L, "n": n, "B": B, "R": inp["R"],
+                     "max_abs_err": err, "corrupt": corrupt,
+                     "checked": [m for m, _ in msgs]})
+    return {"cases": rows, "max_abs_err": worst}
+
+
+def _ss_bytes(kind: str, inp: dict, Wd: int, R: int) -> int:
+    """The bytes a launch must move: each input read once, each output
+    written once (scratch excluded). D4's output is all W words of a block
+    (the JAX function's (B, W); D4 stores the words past the stream as
+    zeros, so the launch writes every one)."""
+    B, Rk, k = inp["blocks"].shape[0], inp["R"] * inp["k"], inp["k"]
+    size = 1 << inp["L"]
+    if kind == "encode":
+        return (B * Rk + Rk + B * k + 8 * k + 2 * B * size + 2048 * B
+                + 4 * B * inp["W"] + 8 * B)
+    return 4 * B * Wd + 8 * B + 4 * B * size + B * R * k + B * k + 17 * B
+
+
+def _ss_chain_cycles(kind: str, lat: dict) -> float:
+    """A floor of one round's dependent chain, from the card's measured
+    latencies (``csrc/latency.cu``): D4 state -> (tt_bits + state) >> 16
+    (an add and a shift) -> state >> bits (a shift) -> + find_state (an
+    add) -> the next state (a shared-memory load); D5 state -> its entry (a
+    shared-memory load) -> the bit count (a shift) -> c - prefix and the
+    read's shift (an add and a shift) -> the mask (LOP3) -> the state.
+    The scan's shuffles and barrier and the payload read are not counted."""
+    if kind == "encode":
+        return lat["ADD_SHF"] + lat["SHF"] + lat["IMAD"] + lat["LDS"]
+    return lat["LDS"] + lat["SHF"] + lat["ADD_SHF"] + lat["LOP3"]
+
+
+def _ss_launchers(inp: dict, dw, dt, R: int):
+    """D4's and D5's launchers on preallocated outputs (what the kernels
+    alone take); every call writes every output word anew."""
+    import torch
+
+    from entropy_coders_tpu_torch.kernels import build as KB
+    from entropy_coders_tpu_torch.kernels.launch import launch
+
+    lib = KB.load()
+    syms, valid, init, finish, (table, tt_bits, tt_fs) = inp["enc"]
+    B, k, L = syms.shape[0], inp["k"], inp["L"]
+    dev = syms.device
+    size = table.shape[1]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    words = torch.empty((B, inp["W"]), dtype=torch.int32, device=dev)
+    total = torch.empty(B, dtype=torch.int64, device=dev)
+    sbits = torch.empty(tuple(syms.shape), dtype=torch.uint8, device=dev)
+    svals = torch.empty(tuple(syms.shape), dtype=torch.int16, device=dev)
+    fstate = torch.empty((B, k), dtype=torch.int32, device=dev)
+    out_syms = torch.empty((B, R, k), dtype=torch.uint8, device=dev)
+    emit = torch.empty(B, dtype=torch.int64, device=dev)
+    finals = torch.empty((B, k), dtype=torch.uint8, device=dev)
+    done = torch.empty(B, dtype=torch.bool, device=dev)
+    cursor = torch.empty(B, dtype=torch.int64, device=dev)
+
+    def encode():
+        launch(lib.ect_fse_encode, syms.data_ptr(), valid.data_ptr(),
+               init.data_ptr(), finish.data_ptr(), table.data_ptr(),
+               tt_bits.data_ptr(), tt_fs.data_ptr(), words.data_ptr(),
+               total.data_ptr(), None, sbits.data_ptr(), svals.data_ptr(),
+               fstate.data_ptr(), B, inp["R"], k, L, size, inp["W"], stream)
+
+    def decode():
+        launch(lib.ect_fse_decode, dw.data_ptr(), dt.data_ptr(),
+               inp["packed"].data_ptr(), out_syms.data_ptr(),
+               emit.data_ptr(), finals.data_ptr(), done.data_ptr(),
+               cursor.data_ptr(), None, fstate.data_ptr(), B, dw.shape[1], k,
+               L, size, R, stream)
+
+    return encode, decode, (words.view(torch.uint32), total), (
+        out_syms, emit, finals, done, cursor)
+
+
+def _ss_plain(fn, runs: int):
+    """The plain version's outputs and its host-clock time in ms (the
+    median of the calls after the first, or the one call), the card
+    synchronised around each call."""
+    import torch
+
+    times, out = [], None
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times[1:] or times), times
+
+
+def _ss_kernels_timed(inp: dict, lat: dict, mhz: float) -> dict:
+    """D4 and D5 at ``inp``'s shape by CUDA events: the launcher alone
+    (``ms``: the kernels) and a wrapper call (``wrapper_ms``: its
+    allocations), the launchers' outputs first held against the
+    wrappers' (``launcher_vs_wrapper_err``, the one call path against the
+    other, not against the plain versions); the bound, the larger of the
+    bytes over 3.35 TB/s and the chain floor times the rounds
+    (``bound_by`` "operations" when the chain binds). Returns the wrappers'
+    outputs too."""
+    import torch
+
+    from entropy_coders_tpu_torch.ops import coder as C
+    from entropy_coders_tpu_torch.tools.bench_data import cuda_ms
+
+    k, L = inp["k"], inp["L"]
+    kw = dict(k=k, L=L, W=inp["W"])
+    words, total = C.encode_core(*inp["enc"], **kw)
+    dw, dt = _ss_decode_inputs(words, total)
+    R = inp["R"] + 1
+    dec = C.decode_core(dw, dt, inp["packed"], k=k, L=L, R=R)
+    encode, decode, enc_out, dec_out = _ss_launchers(inp, dw, dt, R)
+    encode()
+    decode()
+    torch.cuda.synchronize()
+    err = max(_ss_diff(enc_out, (words, total)), _ss_diff(dec_out, dec))
+    check(err == 0, f"shared_stream launchers != wrappers by {err}")
+    B = inp["blocks"].shape[0]
+    out = {"B": B, "k": k, "L": L, "R": inp["R"], "W": inp["W"],
+           "Wd": dw.shape[1], "launcher_vs_wrapper_err": err}
+    calls = {"encode": (encode, lambda: C.encode_core(*inp["enc"], **kw),
+                        inp["R"]),
+             "decode": (decode, lambda: C.decode_core(dw, dt, inp["packed"],
+                                                      k=k, L=L, R=R), R)}
+    for kind, (alone, wrapper, rounds) in calls.items():
+        ms, runs = cuda_ms(alone, runs=5, warmup=1)
+        wrapper_ms, _ = cuda_ms(wrapper, runs=5, warmup=1)
+        nbytes = _ss_bytes(kind, inp, dw.shape[1], R)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        chain = _ss_chain_cycles(kind, lat)
+        chain_ms = rounds * chain / (mhz * 1e6) * 1e3
+        bound_ms = max(bytes_ms, chain_ms)
+        out[kind] = {"ms": ms, "ms_runs": runs, "wrapper_ms": wrapper_ms,
+                     "bytes": nbytes, "bytes_ms": bytes_ms,
+                     "chain_cycles_a_round": chain, "chain_ms": chain_ms,
+                     "bound_ms": bound_ms,
+                     "bound_by": "bytes" if bytes_ms >= chain_ms
+                     else "operations",
+                     "binds": "bytes" if bytes_ms >= chain_ms else "chain",
+                     "share_of_bound": bound_ms / ms,
+                     "GBps": inp["blocks"].size / ms / 1e6}
+    return out, (words, total), (dw, dt), dec
+
+
+def ss_time_shape(inp: dict, lat: dict, mhz: float,
+                  plain_blocks: int) -> dict:
+    """D4 and D5 at ``inp``'s launch shape (``_ss_kernels_timed``), then
+    the wrappers against the plain versions on the same CUDA tensors,
+    exactly (``max_abs_err``: every output, D5's cursor included), on the
+    first ``plain_blocks`` blocks at the full round count (``plain``: the
+    plain versions' host-clock time there, the kernels' beside it)."""
+    from entropy_coders_tpu_torch.ops import coder as C
+
+    out, enc, (dw, dt), dec = _ss_kernels_timed(inp, lat, mhz)
+    B = out["B"]
+    if plain_blocks < B:
+        sub = _ss_inputs(inp["blocks"][:plain_blocks],
+                         inp["nt"][:plain_blocks], inp["k"], inp["L"])
+        sub_out, enc, (dw, dt), dec = _ss_kernels_timed(sub, lat, mhz)
+    else:
+        sub, sub_out = inp, out
+    k, L, R = sub["k"], sub["L"], sub["R"] + 1
+    runs = 3 if sub["R"] < 1024 else 1  # one call of a long plain loop
+    ref_enc, enc_ms, enc_runs = _ss_plain(
+        lambda: C.encode_core_ref(*sub["enc"], k=k, L=L, W=sub["W"]), runs)
+    ref_dec, dec_ms, dec_runs = _ss_plain(
+        lambda: C.decode_core_ref(dw, dt, sub["packed"], k=k, L=L, R=R),
+        runs)
+    err = max(_ss_diff(enc, ref_enc), _ss_diff(dec, ref_dec))
+    check(err == 0, f"shared_stream k={k}: the wrappers differ from the "
+          f"plain versions by {err} at B = {sub_out['B']}, R = {sub['R']}")
+    out["max_abs_err"] = err
+    out["plain"] = {"B": sub_out["B"], "k": k, "L": L, "R": sub["R"],
+                    "max_abs_err": err,
+                    "encode": {"plain_ms": enc_ms, "plain_runs": enc_runs,
+                               "ms": sub_out["encode"]["ms"]},
+                    "decode": {"plain_ms": dec_ms, "plain_runs": dec_runs,
+                               "ms": sub_out["decode"]["ms"]}}
+    return out
+
+
+def ss_launch_shape(data, frame: bytes, knobs: dict) -> dict:
+    """The inputs of the largest table-log group's D4/D5 launch at a
+    point: the blocks of the input and the normalized counts the frame's
+    block headers carry."""
+    import numpy as np
+
+    from entropy_coders_tpu_torch import frame as TF
+
+    pf = TF._parse_frame(frame)
+    bs, k = knobs["block_size"], knobs["k"]
+    heads = [TF._read_block_header(pf.section(i))[:2]
+             for i in range(pf.n_blocks)]
+    Ls = np.array([L for _, L in heads])
+    L = int(np.bincount(Ls).argmax())
+    rows = np.flatnonzero(Ls == L)
+    blocks = np.asarray(data)[: pf.n_blocks * bs].reshape(-1, bs)[rows]
+    nt = np.stack([heads[i][0] for i in rows]).astype(np.int32)
+    return _ss_inputs(np.ascontiguousarray(blocks), nt, k, L), len(set(Ls))
+
+
+def ss_point(T, data, name: str, lat: dict, mhz: float) -> dict:
+    """One 128 MiB shared-stream point: compress and decompress, cold and
+    warm, the frame's bytes and sha256 against the JAX package's, the
+    launches of a round trip (D4/D5 and D3 one a table-log group a
+    direction, B1/B2 and D1/D2 none, no plain core on a CUDA tensor),
+    D4/D5 at the point's launch shape against the plain versions on the
+    same tensors (``SS_PLAIN_BLOCKS`` of its blocks)."""
+    from entropy_coders_tpu_torch import native
+
+    knobs, want_bytes, want_sha = SHARED_STREAM[name]
+    plain_on_cuda = {}
+    with plain_cores_on_cuda(plain_on_cuda):
+        frame, times = roundtrip(T, data, **knobs)
+    check(not plain_on_cuda, f"{name}: plain cores ran on CUDA tensors "
+          f"{plain_on_cuda}")
+    check(len(frame) == want_bytes and _sha(frame) == want_sha,
+          f"{name}: frame {len(frame)} bytes, sha256 {_sha(frame)}; the JAX "
+          f"package's is {want_bytes} bytes, {want_sha}")
+    inp, groups = ss_launch_shape(data, frame, knobs)
+    got = times["launches"]
+    want = {"decode": 0, "encode": 0, "merge": 0, "split": 0,
+            "tables": 2 * groups, "fse_encode": groups, "fse_decode": groups}
+    check(got == want, f"{name}: a round trip launched {got}, expected "
+          f"{want}")
+    shape = ss_time_shape(inp, lat, mhz, SS_PLAIN_BLOCKS[name])
+    out = {"frame_bytes": len(frame), "sha256": _sha(frame),
+           "ratio": len(frame) / len(data), "knobs": knobs,
+           "groups": groups, "launch_shape": shape,
+           "compress_GBps": len(data) / times["compress_s_warm"] / 1e9,
+           "decompress_GBps": len(data) / times["decompress_s_warm"] / 1e9,
+           **times}
+    if knobs["k"] <= 2:  # the reference format: the C++ host codec
+        t0 = time.perf_counter()
+        nf = native.compress(data, k=knobs["k"])
+        t1 = time.perf_counter()
+        back = native.decompress(nf, k=knobs["k"], max_out=len(data) + 16)
+        t2 = time.perf_counter()
+        check(back == data.tobytes(), f"{name}: the host codec's round trip")
+        out["cpp_host"] = {"compress_s": t1 - t0, "decompress_s": t2 - t1,
+                           "bytes": len(nf)}
+    emit(f"shared_stream_{name}", **out)
+    return out
+
+
+def phase_shared_stream(T, data) -> dict:
+    """The shared-stream coder on the card: D4/D5 against their plain
+    versions (``ss_kernel_cases``), then both 128 MiB points
+    (``ss_point``). Returns the kernels' results for the kernels line."""
+    from entropy_coders_tpu_torch.tools import lane_shapes as LS
+
+    t0 = time.perf_counter()
+    cases = ss_kernel_cases()
+    emit("shared_stream_kernels", **cases, seconds=time.perf_counter() - t0)
+    _, lat = sass_and_latencies()
+    mhz = LS.card_clocks()["sm_max_mhz"]
+    points = {name: ss_point(T, data, name, lat, mhz)
+              for name in SHARED_STREAM}
+    worst = max([cases["max_abs_err"]]
+                + [p["launch_shape"]["max_abs_err"] for p in points.values()])
+    emit("shared_stream", seconds=time.perf_counter() - t0,
+         max_abs_err=worst, sm_max_mhz=mhz)
+    return {"points": points, "max_abs_err": worst}
+
+
 def run_single(T, PL, gg, data, card):
     """The single-device phases; returns the main path's launch counts,
     B1's and B2's largest difference from their plain versions (phases
@@ -2500,6 +3023,7 @@ def run_single(T, PL, gg, data, card):
     path's launch shapes (with the entries' beside them, ``entries``),
     D1-D3's largest differences (phase ``device_host`` and the timings)
     and D3's timings (``device_host.TABLE_SHAPES``)."""
+    from entropy_coders_tpu_torch.ops import coder as C
     from entropy_coders_tpu_torch.ops import device_repack as DR
     from entropy_coders_tpu_torch.ops import tables as TB
 
@@ -2513,18 +3037,23 @@ def run_single(T, PL, gg, data, card):
     DR.MERGE_LAUNCHES = 0
     DR.SPLIT_LAUNCHES = 0
     TB.TABLE_LAUNCHES = 0
-    phase_goldens(T, gg)
-    tp_knobs = dict(block_size=16 * MIB, k=16384, table_log=8, lanes=True)
-    par_knobs = dict(block_size=16 * MIB, k=8192, table_log=11, lanes=True,
-                     bit_pack=True)
-    _, tp_frame = phase_point(T, "throughput", data, THROUGHPUT_BYTES,
-                              **tp_knobs)
-    ratio, par_frame = phase_point(T, "parity", data, PARITY_BYTES,
-                                   **par_knobs)
-    check(ratio <= REFERENCE_RATIO, f"parity ratio {ratio} > "
-          f"{REFERENCE_RATIO}")
-    ddata = default_data(gg.gen_sequence)
-    dframe = phase_default(T, ddata)
+    C.ENCODE_LAUNCHES = 0
+    C.DECODE_LAUNCHES = 0
+    plain_on_cuda = {}
+    with plain_cores_on_cuda(plain_on_cuda):
+        phase_goldens(T, gg)
+        tp_knobs = dict(block_size=16 * MIB, k=16384, table_log=8,
+                        lanes=True)
+        par_knobs = dict(block_size=16 * MIB, k=8192, table_log=11,
+                         lanes=True, bit_pack=True)
+        _, tp_frame = phase_point(T, "throughput", data, THROUGHPUT_BYTES,
+                                  **tp_knobs)
+        ratio, par_frame = phase_point(T, "parity", data, PARITY_BYTES,
+                                       **par_knobs)
+        check(ratio <= REFERENCE_RATIO, f"parity ratio {ratio} > "
+              f"{REFERENCE_RATIO}")
+        ddata = default_data(gg.gen_sequence)
+        dframe = phase_default(T, ddata)
     # read before any phase forces a route: these are the main path's own
     launches = _launch_counts_all()
     check(min(launches.values()) > 0,
@@ -2532,7 +3061,12 @@ def run_single(T, PL, gg, data, card):
     check(launches["tables"] == D3_MAIN_PATH,
           f"{launches['tables']} D3 launches on the main path, expected "
           f"{D3_MAIN_PATH}")
-    emit("launches", **launches)
+    check(launches["fse_encode"] == launches["fse_decode"] == FSE_MAIN_PATH,
+          f"{launches['fse_encode']} / {launches['fse_decode']} D4 / D5 "
+          f"launches on the main path, expected {FSE_MAIN_PATH} each")
+    check(not plain_on_cuda, f"the main path ran the shared-stream plain "
+          f"versions on CUDA tensors: {plain_on_cuda}")
+    emit("launches", **launches, plain_cores_on_cuda=0)
     phase_routes(T, PL, {"throughput": (data, tp_knobs, tp_frame),
                          "parity": (data, par_knobs, par_frame),
                          "default": (ddata, {}, dframe)})
@@ -2554,6 +3088,9 @@ def run_single(T, PL, gg, data, card):
     # main path's counts were read
     timing["entries"], entries_err = phase_lane_entries(data, card)
     worst = max(worst, entries_err)
+    # the shared-stream coder (D4/D5): its kernels against their plain
+    # versions and its two 128 MiB points, after the main path's counts
+    timing["shared_stream"] = phase_shared_stream(T, data)
     # the root scripts' measurements: after the timed phases, so that their
     # profiler windows follow phase trace as they always have
     phase_configs(PL)
@@ -2689,6 +3226,39 @@ def _layout_row(name, replaces, src, launches, err, one10, lay10, turns,
                                  for n, r in (turns or {}).items()}}
 
 
+def _shared_stream_row(name, kind, replaces, launches, ss):
+    """D4 or D5 in the kernels line: its launcher at the MODE_FSE default
+    point's launch shape (1,024 blocks of 128 KiB, k = 1024, L = 11), the
+    plain version on the same CUDA tensors there, and the k = 2 point's
+    shape beside (its plain version on the first two blocks at all 65,535
+    rounds, the kernel's time there beside it, ``plain_k2``); the C++
+    host codec on the k = 2 point's whole input (the reference format,
+    one stream)."""
+    pts = ss["points"]
+    top = pts["fse_default"]["launch_shape"]
+    k2 = pts["fse_k2"]["launch_shape"]["plain"]
+    keys = ("ms", "wrapper_ms", "bytes_ms", "chain_ms", "bound_ms",
+            "bound_by", "binds", "share_of_bound", "GBps")
+    return {"name": name, "route": "cuda",
+            "source": "entropy_coders_tpu_torch/csrc/fse_coder.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": ss["max_abs_err"], "ms": top[kind]["ms"],
+            "plain_ms": top["plain"][kind]["plain_ms"],
+            "bound_ms": top[kind]["bound_ms"],
+            "bound_by": top[kind]["bound_by"], "library_ms": None,
+            "plain_k2": {"B": k2["B"], "k": k2["k"], "L": k2["L"],
+                         "R": k2["R"], **k2[kind]},
+            "cpp_host_s": pts["fse_k2"]["cpp_host"][
+                "compress_s" if kind == "encode" else "decompress_s"],
+            "shapes": {p: {"B": r["launch_shape"]["B"],
+                           "k": r["launch_shape"]["k"],
+                           "L": r["launch_shape"]["L"],
+                           "R": r["launch_shape"]["R"],
+                           **{key: r["launch_shape"][kind][key]
+                              for key in keys}}
+                       for p, r in pts.items()}}
+
+
 def print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,
                   ring_peer, par, layouts):
     """The line before the last: every kernel with its main-path launches,
@@ -2715,8 +3285,9 @@ def print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,
     beside them, their two kernels' device time (``kernel_ms``, from the
     profiler), the first design's call (``old_ms``, when ``build/parent``
     holds it) and the kernels a call issued. D3 is timed at a lane group's
-    launch shape (``_tables_row``). No PyTorch call computes B1, B2, B4,
-    B5 or D1-D3."""
+    launch shape (``_tables_row``), D4 and D5 at the MODE_FSE default
+    point's (``_shared_stream_row``). No PyTorch call computes B1, B2, B4,
+    B5 or D1-D5."""
     lay_launches, lay_err, lay10, one10, turns = layouts
     shapes = timing["shapes"]
     src = "entropy_coders_tpu_torch/csrc"
@@ -2761,6 +3332,12 @@ def print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,
                          lambda d: d["repack"]["split"], dh_err["repack"]),
         _tables_row(f"{src}/tables.cu", launches["tables"], timing["tables"],
                     dh_err["tables"]),
+        _shared_stream_row("fse_encode (D4)", "encode",
+                           "entropy_coders_tpu/ops/coder.py:62",
+                           launches["fse_encode"], timing["shared_stream"]),
+        _shared_stream_row("fse_decode (D5)", "decode",
+                           "entropy_coders_tpu/ops/coder.py:166",
+                           launches["fse_decode"], timing["shared_stream"]),
     ]}), flush=True)
 
 

@@ -60,7 +60,7 @@ from .ops import device_repack as DR
 from .ops import pl_coder as PL
 from .ops.coder import blocks_to_syms, decode_core, encode_core, encode_layout
 from .ops.histogram import histogram_blocks
-from .ops.unsigned import resolve_device, to_device
+from .ops.unsigned import resolve_device, to_device, to_numpy
 
 MAGIC = b"FSET"
 VERSION = 2
@@ -528,22 +528,25 @@ def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
 def _encode_group_fse(blocks, norm_tables, l2, k, shared_table, sections,
                       block_ids, dev, layout):
     """Shared-stream (MODE_FSE) encode of the host blocks (B, n) sharing
-    table log ``l2`` on ``dev`` (ops.coder.encode_core)."""
+    table log ``l2`` on ``dev`` (ops.coder.encode_core: kernel D4 on CUDA).
+    The tables are built where the per-lane groups build theirs
+    (``PL.tables_from_norm``: kernel D3 on CUDA, the C++ build on the
+    CPU), as the JAX package builds them on its device."""
     m, R, valid, finish_slots, W = layout
     syms, init_syms = blocks_to_syms(blocks, m, R, k)
-    table, tt_bits, tt_fs = native.build_encode_tables(norm_tables, l2)
+    tabs = PL.tables_from_norm(norm_tables, l2, dev, half="encode")
     words, total_bits = encode_core(
         torch.from_numpy(np.ascontiguousarray(syms)).to(dev),
         torch.from_numpy(valid).to(dev),
         torch.from_numpy(np.ascontiguousarray(init_syms)).to(dev),
         torch.from_numpy(finish_slots).to(dev),
-        (to_device(table, dev), to_device(tt_bits, dev),
-         to_device(tt_fs, dev)),
-        k=k, L=l2, W=W)
-    words = words.cpu().numpy().astype(np.uint32)
+        (tabs.next_state, tabs.tt_bits, tabs.tt_fs), k=k, L=l2, W=W)
     total_bits = total_bits.cpu().numpy()
+    # only the words the longest stream fills cross to the host
+    words = to_numpy(words[:, : _cdiv(int(total_bits.max()), 32)])
     for j, bid in enumerate(block_ids):
-        payload = words[j].tobytes()[: (int(total_bits[j]) + 7) // 8]
+        nbytes = (int(total_bits[j]) + 7) // 8
+        payload = words[j, : _cdiv(nbytes, 4)].tobytes()[:nbytes]
         sections[bid] = (payload if shared_table
                          else _write_header(norm_tables[j], l2) + payload)
 
@@ -910,7 +913,8 @@ def _decode_drain_pl(dispatched, items, raw_len, pf, out, out_base):
 
 def _decode_group(items, raw_len, log2, pf, out, out_base, dev):
     """Decode shared-stream (MODE_FSE) blocks sharing one (raw_len, log2)
-    with ops.coder.decode_core."""
+    with ops.coder.decode_core (kernel D5 on CUDA), the tables built as
+    ``_encode_group_fse`` builds them."""
     k = min(pf.k, raw_len)
     B = len(items)
     # payload words, padded to the group max (+ guard words)
@@ -934,12 +938,11 @@ def _decode_group(items, raw_len, log2, pf, out, out_base, dev):
         words[j] = pb.view(np.uint32)
         norm_tables[j] = nt
 
-    packed = native.build_decode_tables(norm_tables, log2)
+    packed = PL.tables_from_norm(norm_tables, log2, dev, half="decode").dec
     m = raw_len - k
     R = max(_cdiv(m, k), 1) + 1
     syms, emit_count, finals, done, _c = decode_core(
-        torch.from_numpy(words.astype(np.int64)).to(dev),
-        torch.from_numpy(total_bits).to(dev), to_device(packed, dev),
+        to_device(words, dev), torch.from_numpy(total_bits).to(dev), packed,
         k=k, L=log2, R=R)
     if not bool(done.all()):
         raise ValueError("decode did not terminate: corrupt frame")

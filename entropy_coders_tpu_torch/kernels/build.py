@@ -77,6 +77,15 @@ _SIGNATURES = {
     # stream (tables.cu; the same for the empty launch of that shape)
     "ect_build_tables": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ect_build_tables_empty": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # words, total_bits, packed, syms, emit, finals, done, cursor, err,
+    # fstate, B, Wd, k, L, size, R, stream (fse_coder.cu, D5)
+    "ect_fse_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
+                       _I, _I, _I, _P],
+    # syms, valid, init_syms, finish_slots, table, tt_bits, tt_fs, words,
+    # total_bits, err, sbits, svals, fstate, B, R, k, L, size, W, stream
+    # (fse_coder.cu, D4)
+    "ect_fse_encode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _LL, _P],
 }
 
 _lib = None

@@ -2,8 +2,9 @@
 (``pl_coder``, which also holds the JAX package's public lane entries
 ``decode_lanes``, ``encode_lanes`` and ``encode_w_bound``), the lane
 repack and the table build on the device (``device_repack``, ``tables``),
-the shared-stream cores and the reference-format payload codec
-(``coder``) and the byte histograms (``histogram``)."""
+the shared-stream kernels' wrappers and plain versions and the
+reference-format payload codec (``coder``) and the byte histograms
+(``histogram``)."""
 
 from .coder import decode_interleaved, encode_interleaved
 from .pl_coder import decode_lanes, encode_lanes, encode_w_bound

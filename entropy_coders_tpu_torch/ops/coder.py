@@ -1,18 +1,26 @@
 """Shared-stream k-way interleaved tANS cores (counterpart of
-``entropy_coders_tpu/ops/coder.py``), plain PyTorch.
+``entropy_coders_tpu/ops/coder.py``).
 
-The JAX package runs these as XLA ``lax.scan``s vmapped over blocks, not as
-Pallas kernels, so the port's counterpart is plain PyTorch with a Python loop
-over rounds, vectorised over (blocks, lanes), int64 throughout. The
-container needs them for blocks that the per-lane path cannot take, such as
-a ragged tail that is not lane-divisible (``frame._encode_tail``), and
-``encode_interleaved``/``decode_interleaved`` wrap them for one
+The JAX package runs these as XLA ``lax.scan``s vmapped over blocks
+(``_encode_core``/``_decode_core``, ``frame.py:55-67``). Here
+``encode_core``/``decode_core`` are the wrappers of the hand-written kernels
+D4 and D5 (``csrc/fse_coder.cu``, ``ect_fse_encode``/``ect_fse_decode``):
+CUDA tensors launch the kernel (and raise if it cannot build or launch),
+CPU tensors run the plain versions ``encode_core_ref``/``decode_core_ref``,
+a Python loop over rounds vectorised over (blocks, lanes), int64
+inside. ``ENCODE_LAUNCHES``/``DECODE_LAUNCHES`` count the launches. The
+container takes these cores for every MODE_FSE block (``lanes=False``, a
+group the per-lane path refuses, a ragged tail that is not lane-divisible),
+and ``encode_interleaved``/``decode_interleaved`` wrap them for one
 reference-format payload (the bytes ``spec.codec`` writes after the
 histogram header).
 
 ``checked=True`` (``utils.checked``) checks every table index and bit
 offset a core is about to use and raises ValueError on one out of range,
-where the unchecked cores clamp it or leave torch to raise.
+where the unchecked cores clamp it (the plain decode leaves torch to raise
+on a table index). The kernels record, per block, the first check of the
+plain versions' order that failed (``_check_error``), and the wrapper
+raises the plain version's message.
 
 k interleaved streams share one bitstream (the reference's own k=2 scheme,
 generalized): because every lane's state is known at every round, per-lane
@@ -25,10 +33,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .unsigned import as_int64, resolve_device, to_device
+from ..kernels.launch import check as _check, launch as _launch
+from .unsigned import (as_int64, int64_to_u32, resolve_device, to_device,
+                       to_numpy)
 
-__all__ = ["blocks_to_syms", "decode_core", "decode_interleaved",
-           "encode_core", "encode_interleaved", "encode_layout"]
+__all__ = ["DECODE_LAUNCHES", "ENCODE_LAUNCHES", "blocks_to_syms",
+           "decode_core", "decode_core_ref", "decode_interleaved",
+           "encode_core", "encode_core_ref", "encode_interleaved",
+           "encode_layout"]
+
+ENCODE_LAUNCHES = 0  # D4 launches since import (or since a caller reset it)
+DECODE_LAUNCHES = 0  # D5 launches
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -98,9 +113,10 @@ def blocks_to_syms(blocks: np.ndarray, m: int, R: int, k: int):
 # --- the cores ----------------------------------------------------------------------
 
 
-def encode_core(syms, valid, init_syms, finish_slots, tables, *, k: int,
-                L: int, W: int, checked: bool = False):
-    """Batched shared-stream encode (``_encode_core`` vmapped over blocks).
+def encode_core_ref(syms, valid, init_syms, finish_slots, tables, *, k: int,
+                    L: int, W: int, checked: bool = False):
+    """Plain PyTorch version of D4: batched shared-stream encode
+    (``_encode_core`` vmapped over blocks).
 
     syms: (B, R, k) uint8 symbols in emission order (descending index).
     valid: (R, k) bool emission mask.
@@ -109,7 +125,7 @@ def encode_core(syms, valid, init_syms, finish_slots, tables, *, k: int,
     finish_slots: (k,) int64 slot order of the final-state writes.
     tables: (table (B, 2^L) uint16, tt_bits (B, 256) uint32, tt_fs (B, 256)
       int32) on the same device.
-    Returns (words (B, W) int64 holding u32 values, total_bits (B,) int64).
+    Returns (words (B, W) uint32, total_bits (B,) int64).
     """
     table, tt_bits, tt_fs = tables
     tab = as_int64(table)
@@ -162,14 +178,16 @@ def encode_core(syms, valid, init_syms, finish_slots, tables, *, k: int,
     # the last word (dropped, as JAX drops out-of-range scatter rows)
     words.scatter_add_(1, w.clamp(max=W), (all_vals << b) & 0xFFFFFFFF)
     words.scatter_add_(1, (w + 1).clamp(max=W), all_vals >> (32 - b))
-    return words[:, :W], total_bits
+    return int64_to_u32(words[:, :W]), total_bits
 
 
-def decode_core(words, total_bits, packed, *, k: int, L: int, R: int,
-                checked: bool = False):
-    """Batched shared-stream decode (``_decode_core`` vmapped over blocks).
+def decode_core_ref(words, total_bits, packed, *, k: int, L: int, R: int,
+                    checked: bool = False):
+    """Plain PyTorch version of D5: batched shared-stream decode
+    (``_decode_core`` vmapped over blocks).
 
-    words: (B, Wd) int64 u32 payload words with >= 2 zero guard words.
+    words: (B, Wd) u32 payload words (uint32, or int64 holding u32 values)
+      with >= 2 zero guard words.
     total_bits: (B,) int64 bit position of each block's marker bit.
     packed: (B, 2^L) uint32 decode entries (sym << 24 | nb << 16 | base).
     Returns (syms (B, R, k) uint8, emit_count (B,), finals (B, k) uint8,
@@ -177,6 +195,7 @@ def decode_core(words, total_bits, packed, *, k: int, L: int, R: int,
     ``emit_count`` is not its length is corrupt.
     """
     pk_t = as_int64(packed)
+    words = as_int64(words)
     B = words.shape[0]
     dev = words.device
     lanes = torch.arange(k, device=dev)
@@ -220,6 +239,170 @@ def decode_core(words, total_bits, packed, *, k: int, L: int, R: int,
     return syms, emit_count, finals, done, c
 
 
+# --- the kernels' wrappers ----------------------------------------------------
+
+# The kernels' per-block error word holds the smallest sequence number, in
+# the order the plain versions run their checks, of a check that failed
+# there: encode 1 the initial next-state indices, 2 + r round r's, R + 2 the
+# last bit's word; decode 1 the initial bit offsets, 2 + 2r round r's table
+# indices, 3 + 2r its bit offsets, 2 + 2R the final table indices.
+
+
+def _encode_check(seq: int, R: int, size: int, W: int):
+    if seq == 1:
+        return "initial next-state index", size
+    return ("next-state index", size) if seq <= R + 1 else \
+        ("bit offset's word", W)
+
+
+def _decode_check(seq: int, size: int, Wd: int):
+    return ("decode table index", size) if seq % 2 == 0 else \
+        ("bit offset", 32 * (Wd - 1))
+
+
+def _check_error(err: torch.Tensor, name_of) -> None:
+    """Raise the plain version's ValueError for the first failed check
+    that any block's error word (-1: none) records."""
+    failed = err[err >= 0]
+    if failed.numel():
+        what, n = name_of(int(failed.min()))
+        raise ValueError(f"{what} out of range [0, {n})")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _library():
+    """The kernels' library (built at first use): loaded before anything
+    is allocated on the card, so that a failed build raises first."""
+    from ..kernels.build import load
+
+    return load()
+
+
+def encode_core(syms, valid, init_syms, finish_slots, tables, *, k: int,
+                L: int, W: int, checked: bool = False):
+    """Batched shared-stream encode (D4's wrapper; ``_encode_core`` vmapped
+    over blocks).
+
+    syms: (B, R, k) uint8 symbols in emission order (descending index).
+    valid: (R, k) bool emission mask.
+    init_syms: (B, k) uint8 — slot t holds byte n-1-t (its lane's first
+      symbol).
+    finish_slots: (k,) int64 slot order of the final-state writes, in
+      [0, k).
+    tables: (table (B, size) uint16, tt_bits (B, 256) uint32, tt_fs
+      (B, 256) int32) on the same device; size is 2^L for built tables.
+    Returns (words (B, W) uint32, total_bits (B,) int64).
+
+    CUDA tensors launch D4 (and raise if it cannot build or launch); CPU
+    tensors run ``encode_core_ref``."""
+    global ENCODE_LAUNCHES
+    dev = syms.device
+    if dev.type == "cpu":
+        return encode_core_ref(syms, valid, init_syms, finish_slots, tables,
+                               k=k, L=L, W=W, checked=checked)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    table, tt_bits, tt_fs = tables
+    if syms.dim() != 3 or table.dim() != 2:
+        raise ValueError(f"syms must be (B, R, k) and table (B, size), got "
+                         f"{tuple(syms.shape)}, {tuple(table.shape)}")
+    B, R, _ = syms.shape
+    size = table.shape[1]
+    if not 1 <= L <= 16 or W < 1 or size < 1:
+        raise ValueError(f"bad table log {L}, word count {W} or table size "
+                         f"{size}")
+    _check(syms, "syms", (B, R, k), torch.uint8, dev)
+    _check(valid, "valid", (R, k), torch.bool, dev)
+    _check(init_syms, "init_syms", (B, k), torch.uint8, dev)
+    _check(finish_slots, "finish_slots", (k,), torch.int64, dev)
+    _check(table, "table", (B, size), torch.uint16, dev)
+    _check(tt_bits, "tt_bits", (B, 256), torch.uint32, dev)
+    _check(tt_fs, "tt_fs", (B, 256), torch.int32, dev)
+    lib = _library()
+    words = torch.empty((B, W), dtype=torch.int32, device=dev)  # D4 fills
+    total_bits = torch.empty(B, dtype=torch.int64, device=dev)
+    if B:
+        err = (torch.full((B,), -1, dtype=torch.int64, device=dev)
+               if checked else None)
+        sbits = torch.empty((B, R, k), dtype=torch.uint8, device=dev)
+        svals = torch.empty((B, R, k), dtype=torch.int16, device=dev)
+        fstate = torch.empty((B, k), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            _launch(lib.ect_fse_encode, syms.data_ptr(), valid.data_ptr(),
+                    init_syms.data_ptr(), finish_slots.data_ptr(),
+                    table.data_ptr(), tt_bits.data_ptr(), tt_fs.data_ptr(),
+                    words.data_ptr(), total_bits.data_ptr(),
+                    None if err is None else err.data_ptr(),
+                    sbits.data_ptr(), svals.data_ptr(), fstate.data_ptr(),
+                    B, R, k, L, size, W, _stream(dev))
+        ENCODE_LAUNCHES += 1
+        if checked:
+            _check_error(err, lambda s: _encode_check(s, R, size, W))
+    return words.view(torch.uint32), total_bits
+
+
+def decode_core(words, total_bits, packed, *, k: int, L: int, R: int,
+                checked: bool = False):
+    """Batched shared-stream decode (D5's wrapper; ``_decode_core`` vmapped
+    over blocks).
+
+    words: (B, Wd) u32 payload words (uint32, or int64 holding u32 values)
+      with >= 2 zero guard words.
+    total_bits: (B,) int64 bit position of each block's marker bit.
+    packed: (B, size) uint32 decode entries (sym << 24 | nb << 16 | base);
+      size is 2^L for built tables.
+    Returns (syms (B, R, k) uint8, emit_count (B,) int64, finals (B, k)
+    uint8, done (B,) bool, cursor (B,) int64); a block whose ``done`` is
+    false or whose ``emit_count`` is not its length is corrupt.
+
+    CUDA tensors launch D5 (and raise if it cannot build or launch); CPU
+    tensors run ``decode_core_ref``."""
+    global DECODE_LAUNCHES
+    dev = words.device
+    if dev.type == "cpu":
+        return decode_core_ref(words, total_bits, packed, k=k, L=L, R=R,
+                               checked=checked)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if words.dim() != 2 or packed.dim() != 2:
+        raise ValueError(f"words must be (B, Wd) and packed (B, size), got "
+                         f"{tuple(words.shape)}, {tuple(packed.shape)}")
+    B, Wd = words.shape
+    size = packed.shape[1]
+    if not 1 <= L <= 16 or R < 0 or Wd < 1 or size < 1:
+        raise ValueError(f"bad table log {L}, round count {R}, word count "
+                         f"{Wd} or table size {size}")
+    if words.dtype == torch.int64:
+        words = int64_to_u32(words & 0xFFFFFFFF)
+    _check(words, "words", (B, Wd), torch.uint32, dev)
+    _check(total_bits, "total_bits", (B,), torch.int64, dev)
+    _check(packed, "packed", (B, size), torch.uint32, dev)
+    lib = _library()
+    syms = torch.empty((B, R, k), dtype=torch.uint8, device=dev)
+    emit_count = torch.empty(B, dtype=torch.int64, device=dev)
+    finals = torch.empty((B, k), dtype=torch.uint8, device=dev)
+    done = torch.empty(B, dtype=torch.bool, device=dev)
+    cursor = torch.empty(B, dtype=torch.int64, device=dev)
+    if B:
+        err = (torch.full((B,), -1, dtype=torch.int64, device=dev)
+               if checked else None)
+        fstate = torch.empty((B, k), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            _launch(lib.ect_fse_decode, words.data_ptr(),
+                    total_bits.data_ptr(), packed.data_ptr(), syms.data_ptr(),
+                    emit_count.data_ptr(), finals.data_ptr(), done.data_ptr(),
+                    cursor.data_ptr(),
+                    None if err is None else err.data_ptr(),
+                    fstate.data_ptr(), B, Wd, k, L, size, R, _stream(dev))
+        DECODE_LAUNCHES += 1
+        if checked:
+            _check_error(err, lambda s: _decode_check(s, size, Wd))
+    return syms, emit_count, finals, done, cursor
+
+
 # --- one reference-format payload -------------------------------------------------
 
 
@@ -244,8 +427,9 @@ def encode_interleaved(data, k: int, enc_table, table_log: int, core=None,
             enc_table.table, enc_table.tt_bits, enc_table.tt_find_state)),
         k=k, L=int(table_log), W=W)
     total_bits = int(total_bits[0])
-    payload = words[0].cpu().numpy().astype("<u4").tobytes()
-    return payload[: (total_bits + 7) // 8], total_bits
+    nbytes = (total_bits + 7) // 8
+    payload = to_numpy(words[0, : _cdiv(nbytes, 4)]).astype("<u4").tobytes()
+    return payload[:nbytes], total_bits
 
 
 def decode_interleaved(payload, k: int, dec_table, table_log: int,

@@ -428,16 +428,24 @@ def coder_unframe(frame: bytes, k: int, max_out: int, device="cuda"):
 
 def config1(device="cuda", corpora=None):
     """64 KiB ASCII, single stream, 12-bit table (the reference's own
-    shape): the port's shared-stream coder for exactness, the C++ host
-    codec for speed (``host_decode_MBps``: 20 decodes, host clock)."""
+    shape): the port's shared-stream coder (kernels D4/D5 on CUDA) for
+    exactness, its wall times (``coder_encode_s``/``coder_decode_s``, host
+    clock, the table build and copies included) beside the C++ host
+    codec's (``host_encode_s``, and ``host_decode_MBps``: 20 decodes)."""
     data = ascii_block(64 << 10, (corpora or Corpora()).root)
+    t0 = time.perf_counter()
     frame = coder_frame(data, 1, 12, device)
-    _require(coder_unframe(frame, 1, len(data) + 16, device) == data,
-             "config 1: the coder's round trip")
+    t1 = time.perf_counter()
+    back = coder_unframe(frame, 1, len(data) + 16, device)
+    t2 = time.perf_counter()
+    _require(back == data, "config 1: the coder's round trip")
     res = {"config": 1, "workload": "64KiB ascii, k=1, L=12",
            "ratio": len(frame) / len(data), "roundtrip": "exact",
-           "corpus_sha256": hashlib.sha256(data).hexdigest()}
+           "corpus_sha256": hashlib.sha256(data).hexdigest(),
+           "coder_encode_s": t1 - t0, "coder_decode_s": t2 - t1}
+    t0 = time.perf_counter()
     nf = native.compress(data, k=1)
+    res["host_encode_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     for _ in range(20):
         back = native.decompress(nf, k=1, max_out=len(data) + 16)
@@ -449,7 +457,9 @@ def config1(device="cuda", corpora=None):
 def config2(device="cuda", corpora=None):
     """1 MiB mixed-entropy, k=2 (the reference's own two-stream format)
     and k=4 (its generalization): round trips on the C++ host codec, and
-    the port's coder equal to it byte for byte on a 48 KiB slice."""
+    the port's coder (D4 on CUDA) equal to it byte for byte on a 48 KiB
+    slice; each coder call's wall time (host clock) beside the host
+    codec's on the same slice (``coder_encode_s``, ``host_encode_s``)."""
     data = mixed_buffer(1 << 20, root=(corpora or Corpora()).root)
     nf2 = native.compress(data, k=2)
     nf4 = native.compress(data, k=4)
@@ -457,14 +467,21 @@ def config2(device="cuda", corpora=None):
              and native.decompress(nf4, k=4, max_out=len(data) + 16) == data,
              "config 2: the host codec's round trips")
     sl = data[: 48 << 10]
+    coder_s, host_s = {}, {}
     for k in (2, 4):
-        _require(coder_frame(sl, k, device=device) == native.compress(sl, k=k),
-                 f"config 2: k={k} frame mismatch")
+        t0 = time.perf_counter()
+        got = coder_frame(sl, k, device=device)
+        t1 = time.perf_counter()
+        want = native.compress(sl, k=k)
+        t2 = time.perf_counter()
+        _require(got == want, f"config 2: k={k} frame mismatch")
+        coder_s[f"k{k}"], host_s[f"k{k}"] = t1 - t0, t2 - t1
     return {"config": 2, "workload": "1MiB mixed, k=4 (+k=2 ref-identical)",
             "ratio_k2": len(nf2) / len(data),
             "ratio_k4": len(nf4) / len(data),
             "bit_exact": "k<=2 reference format; coder==native byte-for-byte",
-            "corpus_sha256": hashlib.sha256(data).hexdigest()}
+            "corpus_sha256": hashlib.sha256(data).hexdigest(),
+            "coder_encode_s": coder_s, "host_encode_s": host_s}
 
 
 def _on_cuda(device) -> bool:

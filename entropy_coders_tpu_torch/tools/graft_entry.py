@@ -3,8 +3,8 @@ trip (``entry``) and a dry run over a mesh (``dryrun_multichip``).
 
 * ``entry(device)`` returns ``(fn, args)``: ``fn`` is one block's round
   trip, k-way tANS encode, bit-pack and k-way decode, through the port's
-  shared-stream cores ``ops.coder.encode_core`` and ``decode_core`` (plain
-  torch ops on the device, as the JAX cores are XLA and not Pallas), on
+  shared-stream cores ``ops.coder.encode_core`` and ``decode_core``
+  (kernels D4 and D5 on the card, their plain versions on the CPU), on
   the tiny block of ``example_block``. It returns ``(out_syms, emit_count,
   finals, done)``, equal to the JAX function's; there is no ``jit``. Like
   the JAX function it starts the decode one bit past the stream's marker

@@ -8,8 +8,11 @@ src/bitstream/writer.rs:142-145, 165-175). Here the same cores
 (``ops.coder.encode_core``/``decode_core``) run with ``checked=True``: every
 table index and bit offset is checked before it is used, and one out of
 range raises ``ValueError`` where the unchecked cores clamp it or torch
-raises its own ``IndexError``/``RuntimeError``. A sanitizer: slower, for
-tests and debugging. The per-lane kernels have their counterpart in the
+raises its own ``IndexError``/``RuntimeError``. On the CPU the plain
+versions check as they go; on CUDA the kernels D4/D5 record, per block, the
+first check that failed in the plain versions' order, and the wrapper
+raises the same message after the launch. A sanitizer: slower, for tests
+and debugging. The per-lane kernels have their counterpart in the
 plain versions and the cursor-drain check (``ops.pl_coder``).
 
 ``checked_encode_core``/``checked_decode_core`` take the JAX package's
@@ -40,8 +43,8 @@ def checked_encode_core(syms, valid, init_syms, finish_slots, tt_bits, tt_fs,
     as the JAX package's ``checked_encode_core`` takes it: syms (R, k)
     uint8 in emission order, valid (R, k) bool, init_syms (k,) uint8,
     finish_slots (k,) int, tt_bits (256,) uint32, tt_fs (256,) int32,
-    table (2^L,) uint16. Returns (words (W,) int64 holding u32 values,
-    total_bits () int64), the JAX core's values."""
+    table (2^L,) uint16. Returns (words (W,) uint32, total_bits () int64),
+    the JAX core's values."""
     dev = entry_device(device, syms, valid, init_syms, finish_slots, tt_bits,
                        tt_fs, table)
     words, total_bits = coder.encode_core(

@@ -13,8 +13,10 @@
 // launcher put in `emu_cluster`. Used by
 // tests/test_torch_repack_emulated.py (repack_main.cpp),
 // tests/test_torch_ring_emulated.py (ring_main.cpp),
-// tests/test_torch_tables_emulated.py (tables_main.cpp) and
-// tests/test_torch_lane_decode_emulated.py (lane_decode_main.cpp).
+// tests/test_torch_tables_emulated.py (tables_main.cpp),
+// tests/test_torch_lane_decode_emulated.py (lane_decode_main.cpp) and
+// tests/test_torch_coder_emulated.py (fse_coder_main.cpp). atomicOr and
+// atomicMin are std::atomic_ref operations.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -96,6 +98,17 @@ inline unsigned __match_any_sync(unsigned, unsigned v) {
     if ((unsigned)emu_warp->slot[i] == v) peers |= 1u << i;
   emu_warp->bar.arrive_and_wait();
   return peers;
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_or(v);
+}
+inline unsigned long long atomicMin(unsigned long long* p,
+                                    unsigned long long v) {
+  std::atomic_ref<unsigned long long> a(*p);
+  unsigned long long cur = a.load();
+  while (v < cur && !a.compare_exchange_weak(cur, v)) {
+  }
+  return cur;
 }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __clz(int v) { return v ? __builtin_clz((unsigned)v) : 32; }

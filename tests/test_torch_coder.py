@@ -138,7 +138,7 @@ def test_checked_cores_equal_unchecked():
     assert torch.equal(words[0], cwords) and torch.equal(bits[0], cbits)
     packed = to_device(np.asarray(DecodeTable(hist).packed, np.uint32)[None],
                        "cpu")
-    dec = (torch.cat([words, torch.zeros((1, 2), dtype=torch.int64)], 1),
+    dec = (torch.cat([words, torch.zeros((1, 2), dtype=torch.uint32)], 1),
            bits, packed)
     plain = C.decode_core(*dec, k=4, L=hist.log2, R=R + 1)
     checked = CK.checked_decode_core(dec[0][0], dec[1][0], dec[2][0], k=4,
@@ -163,7 +163,7 @@ def test_checked_cores_raise_value_error_on_out_of_range():
                                **kw)
 
     words, bits = C.encode_core(*enc, **kw)
-    words = torch.cat([words, torch.zeros((1, 2), dtype=torch.int64)], 1)
+    words = torch.cat([words, torch.zeros((1, 2), dtype=torch.uint32)], 1)
     packed = to_device(np.asarray(DecodeTable(hist).packed, np.uint32)[None],
                        "cpu")
     half = packed[:, : packed.shape[1] // 2].contiguous()
