@@ -72,8 +72,16 @@ the bytes over 3.35 TB/s and a floor of one round's dependent chain
 under the card's measured latencies times the rounds; the wrappers
 against the plain versions on the same CUDA tensors, exactly, at k = 1024
 on the whole launch shape and at k = 2 on its first two blocks at all
-65,535 rounds, each plain version's time beside the kernel's; the C++ host
-codec at k = 2.
+65,535 rounds, each plain version's time beside the kernel's; with
+``build/parent`` holding a checkout of a parent commit, its D4/D5 and
+this commit's in turns at both launch shapes (old, new, new, old, outputs
+equal); the peak device memory of one compress at each point; the C++
+host codec at k = 2. Then each kernel's registers, local memory,
+resident CTAs an SM and round loop in the SASS at k = 1024 and 2, and the
+k sweep: 1,024 blocks of 128 KiB at L = 11 for k in {1, 2, 4, 8, 32, 128,
+1024}, every kernel that takes k (D5's one-thread, the one-warp and the
+wide ones) against the wrapper and timed beside the bound, the wrappers
+against the plain versions on the first block.
 Phase ``layouts`` drives the decode table-layout tools
 (``entropy_coders_tpu_torch.tools``, kernels B4/B5): ``l10_attack.run`` at
 L=10 on the 128 MiB data and ``upack_hilog.run`` at L=11 and 13 (64 MiB,
@@ -187,9 +195,11 @@ library (``entropy_coders_tpu_torch.native``) beside its kernels.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import importlib.util
 import json
+import re
 import socket
 import statistics
 import subprocess
@@ -2783,15 +2793,19 @@ def _ss_chain_cycles(kind: str, lat: dict) -> float:
     return lat["LDS"] + lat["SHF"] + lat["ADD_SHF"] + lat["LOP3"]
 
 
-def _ss_launchers(inp: dict, dw, dt, R: int):
-    """D4's and D5's launchers on preallocated outputs (what the kernels
-    alone take); every call writes every output word anew."""
+def _ss_launchers(inp: dict, dw, dt, R: int, lib=None, path: int = -1):
+    """D4's and D5's launchers of ``lib`` (this commit's library, or a
+    parent's from ``device_host.load_parent``: its scratch allocated once
+    where its launchers take some) on preallocated outputs, what the
+    kernels alone take; every call writes every output word anew. ``path``
+    names the kernel (``ect_fse_*_path``: 0 D5 one-thread, 1 wide, 2
+    one-warp), -1 the launch rule's."""
     import torch
 
     from entropy_coders_tpu_torch.kernels import build as KB
     from entropy_coders_tpu_torch.kernels.launch import launch
 
-    lib = KB.load()
+    lib = KB.load() if lib is None else lib
     syms, valid, init, finish, (table, tt_bits, tt_fs) = inp["enc"]
     B, k, L = syms.shape[0], inp["k"], inp["L"]
     dev = syms.device
@@ -2799,31 +2813,64 @@ def _ss_launchers(inp: dict, dw, dt, R: int):
     stream = torch.cuda.current_stream(dev).cuda_stream
     words = torch.empty((B, inp["W"]), dtype=torch.int32, device=dev)
     total = torch.empty(B, dtype=torch.int64, device=dev)
-    sbits = torch.empty(tuple(syms.shape), dtype=torch.uint8, device=dev)
-    svals = torch.empty(tuple(syms.shape), dtype=torch.int16, device=dev)
-    fstate = torch.empty((B, k), dtype=torch.int32, device=dev)
     out_syms = torch.empty((B, R, k), dtype=torch.uint8, device=dev)
     emit = torch.empty(B, dtype=torch.int64, device=dev)
     finals = torch.empty((B, k), dtype=torch.uint8, device=dev)
     done = torch.empty(B, dtype=torch.bool, device=dev)
     cursor = torch.empty(B, dtype=torch.int64, device=dev)
+    enc_args = [syms.data_ptr(), valid.data_ptr(), init.data_ptr(),
+                finish.data_ptr(), table.data_ptr(), tt_bits.data_ptr(),
+                tt_fs.data_ptr(), words.data_ptr(), total.data_ptr(), None]
+    dec_args = [dw.data_ptr(), dt.data_ptr(), inp["packed"].data_ptr(),
+                out_syms.data_ptr(), emit.data_ptr(), finals.data_ptr(),
+                done.data_ptr(), cursor.data_ptr(), None]
+    if getattr(lib, "fse_scratch", False):  # the parent's launchers
+        fstate = torch.empty((B, k), dtype=torch.int32, device=dev)
+        sbits = torch.empty(tuple(syms.shape), dtype=torch.uint8, device=dev)
+        svals = torch.empty(tuple(syms.shape), dtype=torch.int16, device=dev)
+        enc_args += [sbits.data_ptr(), svals.data_ptr(), fstate.data_ptr()]
+        dec_args += [fstate.data_ptr()]
+    enc_args += [B, inp["R"], k, L, size, inp["W"], stream]
+    dec_args += [B, dw.shape[1], k, L, size, R, stream]
+    if path >= 0:
+        enc = functools.partial(lib.ect_fse_encode_path, path)
+        dec = functools.partial(lib.ect_fse_decode_path, path)
+        enc.__name__, dec.__name__ = "ect_fse_encode_path", \
+            "ect_fse_decode_path"
+    else:
+        enc, dec = lib.ect_fse_encode, lib.ect_fse_decode
 
     def encode():
-        launch(lib.ect_fse_encode, syms.data_ptr(), valid.data_ptr(),
-               init.data_ptr(), finish.data_ptr(), table.data_ptr(),
-               tt_bits.data_ptr(), tt_fs.data_ptr(), words.data_ptr(),
-               total.data_ptr(), None, sbits.data_ptr(), svals.data_ptr(),
-               fstate.data_ptr(), B, inp["R"], k, L, size, inp["W"], stream)
+        launch(enc, *enc_args)
 
     def decode():
-        launch(lib.ect_fse_decode, dw.data_ptr(), dt.data_ptr(),
-               inp["packed"].data_ptr(), out_syms.data_ptr(),
-               emit.data_ptr(), finals.data_ptr(), done.data_ptr(),
-               cursor.data_ptr(), None, fstate.data_ptr(), B, dw.shape[1], k,
-               L, size, R, stream)
+        launch(dec, *dec_args)
 
     return encode, decode, (words.view(torch.uint32), total), (
         out_syms, emit, finals, done, cursor)
+
+
+def ss_in_turns(inp: dict, dw, dt, R: int) -> dict | None:
+    """D4 and D5 of the parent commit (``build/parent``, when it has them)
+    and of this one at ``inp``'s launch shape in turns (old, new, new,
+    old; ``kernels_in_turns``), outputs equal."""
+    old = parent_kernels()[1]
+    if old is None or not old.fse:
+        return None
+    runs = {}
+
+    def call(lib, kind):
+        if id(lib) not in runs:
+            runs[id(lib)] = _ss_launchers(inp, dw, dt, R, lib)
+        encode, decode, enc_out, dec_out = runs[id(lib)]
+        (encode if kind == "encode" else decode)()
+        return enc_out if kind == "encode" else dec_out
+
+    out = {kind: kernels_in_turns(lambda lib, kind=kind: call(lib, kind),
+                                  f"shared_stream k={inp['k']} {kind}")
+           for kind in ("encode", "decode")}
+    del runs
+    return out
 
 
 def _ss_plain(fn, runs: int):
@@ -2891,7 +2938,9 @@ def _ss_kernels_timed(inp: dict, lat: dict, mhz: float) -> dict:
                      else "operations",
                      "binds": "bytes" if bytes_ms >= chain_ms else "chain",
                      "share_of_bound": bound_ms / ms,
-                     "GBps": inp["blocks"].size / ms / 1e6}
+                     "GBps": inp["blocks"].size / ms / 1e6,
+                     "launch": ss_launch_info(kind, k, L,
+                                              inp["packed"].shape[1])}
     return out, (words, total), (dw, dt), dec
 
 
@@ -2905,6 +2954,7 @@ def ss_time_shape(inp: dict, lat: dict, mhz: float,
     from entropy_coders_tpu_torch.ops import coder as C
 
     out, enc, (dw, dt), dec = _ss_kernels_timed(inp, lat, mhz)
+    out["in_turns"] = ss_in_turns(inp, dw, dt, inp["R"] + 1)
     B = out["B"]
     if plain_blocks < B:
         sub = _ss_inputs(inp["blocks"][:plain_blocks],
@@ -2930,6 +2980,219 @@ def ss_time_shape(inp: dict, lat: dict, mhz: float,
                     "decode": {"plain_ms": dec_ms, "plain_runs": dec_runs,
                                "ms": sub_out["decode"]["ms"]}}
     return out
+
+
+# the k sweep: 1,024 blocks of 128 KiB at L = 11 (the default point's
+# launch shape) at each k, both kernels where both take k
+SS_SWEEP_K = (1, 2, 4, 8, 32, 128, 1024)
+SS_LAUNCH_KEYS = ("kernel", "lanes", "threads", "smem_bytes", "registers",
+                  "local_bytes", "ctas_per_sm", "ring_words", "sub_threads",
+                  "blocks_per_cta")
+
+
+def ss_launch_info(kind: str, k: int, L: int, size: int,
+                   path: int = -1) -> dict:
+    """What a D4/D5 launch takes on this card (``ect_fse_launch_info``):
+    the kernel (0 D5 one-thread, 1 wide, 2 one-warp), its lanes a thread,
+    CTA, shared memory, registers and local memory a thread (the
+    compiler's), resident CTAs an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), rings, blocks a
+    CTA."""
+    import ctypes
+
+    from entropy_coders_tpu_torch.kernels import build as KB
+
+    out = (ctypes.c_int * 10)()
+    rc = KB.load().ect_fse_launch_info(0 if kind == "decode" else 1, path, k,
+                                       L, size, 0, out)
+    check(rc == 0, f"ect_fse_launch_info({kind}, {path}, k={k}): {rc}")
+    return dict(zip(SS_LAUNCH_KEYS, list(out)))
+
+
+# each kernel's round loop in the SASS: (function pattern, ops the loop
+# holds, the op that ranks the loops that hold them)
+SS_SASS = {("decode", 0): (r"fse_decode_oneILi{n}ELb0E",
+                           ("STS.U8", "LDS", "LDG"), "LDS"),
+           ("decode", 1): (r"fse_decode_wideILi{n}ELb0E", ("SHFL.UP",), None),
+           ("decode", 2): (r"fse_decode_warpILb0E", ("SHFL.IDX", "LDS"),
+                           "LDS"),
+           ("encode", 1): (r"fse_encode_wideILi{n}ELb0E",
+                           ("SHFL.UP", "LDS.U16"), "LDS.U16"),
+           ("encode", 2): (r"fse_encode_warpILb0E", ("LDS.64", "LDS.U16"),
+                           None)}
+# each direction's kernels (path numbers of ``ect_fse_*_path``) and the
+# most lanes each takes: 0 D5's one-thread kernel, 2 the one-warp ones, 1
+# the wide ones
+SS_PATHS = {"decode": ((0, 2), (2, 32), (1, 1 << 16)),
+            "encode": ((2, 32), (1, 1 << 16))}
+
+
+def ss_paths(kind: str, k: int) -> list:
+    """The kernels of ``kind`` that take k lanes."""
+    return [p for p, top in SS_PATHS[kind] if k <= top]
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_round_loop(text: str, kind: str, path: int, lanes: int) -> dict:
+    """The round loop of the kernel's SASS: of the loops (a backward branch
+    and the code from its target) that hold the ops ``SS_SASS`` names and
+    hold no other such loop, the one with the most of its ranking op (the
+    shortest where it names none). Its static instruction count, all paths
+    of its body, and its most frequent ops."""
+    from collections import Counter
+
+    from entropy_coders_tpu_torch.tools import lane_shapes as LS
+
+    pat, must, rank = SS_SASS[(kind, path)]
+    body = LS.sass_function(text, pat.format(n=lanes))
+    if body is None:
+        return {"found": False}
+    insns, labels, pending = [], {}, []
+    for line in body.splitlines():
+        lab = re.match(r"\s*(\.L\w+):", line)
+        if lab:
+            pending.append(lab.group(1))
+        m = _SASS_LINE.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            insns.append((addr, m.group(2), m.group(3)))
+    loops = []
+    for addr, op, args in insns:
+        if not op.startswith("BRA"):
+            continue
+        hexa = re.search(r"0x([0-9a-f]+)", args)
+        lab = re.search(r"(\.L\w+)", args)
+        target = (int(hexa.group(1), 16) if hexa
+                  else labels.get(lab.group(1)) if lab else None)
+        if target is not None and target < addr:
+            loops.append((target, addr))
+    cands = []
+    for lo, hi in loops:
+        ops = [op for a, op, _ in insns if lo <= a <= hi]
+        if all(any(o.startswith(m) for o in ops) for m in must):
+            cands.append((lo, hi, ops))
+    inner = [c for c in cands
+             if not any(c[0] <= d[0] and d[1] <= c[1] and d[:2] != c[:2]
+                        for d in cands)]
+    if not inner:
+        return {"found": False, "loops": len(loops)}
+    ops = min(inner, key=lambda c: (
+        -sum(o.startswith(rank) for o in c[2]) if rank else 0,
+        len(c[2])))[2]
+    return {"found": True, "instructions": len(ops),
+            "top_ops": Counter(o.split(".")[0] for o in ops).most_common(8)}
+
+
+def ss_kernel_info(text: str, L: int, size: int) -> dict:
+    """Each kernel's launch (``ss_launch_info``) and round loop
+    (``sass_round_loop``) at the two points' k: 1,024 (the wide kernels)
+    and 2 (every kernel that takes it)."""
+    out = {}
+    for kind in ("decode", "encode"):
+        for k in (1024, 2):
+            for path in ss_paths(kind, k):
+                info = ss_launch_info(kind, k, L, size, path)
+                info["round_loop"] = sass_round_loop(text, kind, path,
+                                                     info["lanes"])
+                out[f"{kind}_k{k}_kernel{path}"] = info
+    return out
+
+
+def ss_plain_first_block(sub: dict, enc, dw, dt, dec, R: int) -> int:
+    """The largest difference between the kernels' outputs on the first
+    block and the plain versions' on the same inputs (run on the host: a
+    Python loop of R rounds)."""
+    from entropy_coders_tpu_torch.ops import coder as C
+
+    syms, valid, init, finish, tables = sub["enc"]
+    k, L = sub["k"], sub["L"]
+    ref = C.encode_core_ref(syms[:1].cpu(), valid.cpu(), init[:1].cpu(),
+                            finish.cpu(), tuple(t[:1].cpu() for t in tables),
+                            k=k, L=L, W=sub["W"])
+    err = _ss_diff([t[:1].cpu() for t in enc], ref)
+    ref = C.decode_core_ref(dw[:1].cpu(), dt[:1].cpu(),
+                            sub["packed"][:1].cpu(), k=k, L=L, R=R)
+    return max(err, _ss_diff([t[:1].cpu() for t in dec], ref))
+
+
+def ss_sweep(inp: dict, lat: dict, mhz: float) -> dict:
+    """D4 and D5 over ``SS_SWEEP_K`` on the default point's blocks and
+    tables (1,024 blocks of 128 KiB, L = 11): at each k the wrappers (the
+    launch rule's kernel), then each kernel that takes k, its outputs equal
+    to the wrappers' and its time by CUDA events beside the bound; the
+    wrappers against the plain versions on the first block. Where the
+    kernels' times cross places the rule's thresholds."""
+    import torch
+
+    from entropy_coders_tpu_torch.ops import coder as C
+    from entropy_coders_tpu_torch.tools.bench_data import cuda_ms
+
+    L, size = inp["L"], inp["packed"].shape[1]
+    rows = {}
+    for k in SS_SWEEP_K:
+        t0 = time.perf_counter()
+        sub = _ss_inputs(inp["blocks"], inp["nt"], k, L)
+        words, total = C.encode_core(*sub["enc"], k=k, L=L, W=sub["W"])
+        dw, dt = _ss_decode_inputs(words, total)
+        R = sub["R"] + 1
+        dec = C.decode_core(dw, dt, sub["packed"], k=k, L=L, R=R)
+        row = {"k": k, "R": sub["R"], "B": len(inp["blocks"]),
+               "rule": {kind: ss_launch_info(kind, k, L, size)["kernel"]
+                        for kind in ("encode", "decode")}}
+        for kind, rounds in (("encode", sub["R"]), ("decode", R)):
+            nbytes = _ss_bytes(kind, sub, dw.shape[1], R)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            chain_ms = rounds * _ss_chain_cycles(kind, lat) / (mhz * 1e6) * 1e3
+            row[f"{kind}_bound_ms"] = max(bytes_ms, chain_ms)
+            row[f"{kind}_bound_by"] = ("bytes" if bytes_ms >= chain_ms
+                                       else "operations")
+        for kind in ("encode", "decode"):
+            for path in ss_paths(kind, k):
+                encode, decode, enc_out, dec_out = _ss_launchers(
+                    sub, dw, dt, R, path=path)
+                fn, got, want = ((encode, enc_out, (words, total))
+                                 if kind == "encode" else
+                                 (decode, dec_out, dec))
+                fn()
+                torch.cuda.synchronize()
+                err = _ss_diff(got, want)
+                check(err == 0, f"shared_stream sweep k={k}: {kind} kernel "
+                      f"{path} != the wrapper by {err}")
+                ms, runs = cuda_ms(fn, runs=3, warmup=1)
+                row.setdefault(f"kernel{path}", {})[kind] = {
+                    "ms": ms, "ms_runs": runs, "max_abs_err": err,
+                    "share_of_bound": row[f"{kind}_bound_ms"] / ms,
+                    **ss_launch_info(kind, k, L, size, path)}
+                del encode, decode, enc_out, dec_out
+        row["plain_first_block_err"] = ss_plain_first_block(
+            sub, (words, total), dw, dt, dec, R)
+        check(row["plain_first_block_err"] == 0, f"shared_stream sweep "
+              f"k={k}: the wrappers != the plain versions on block 0")
+        row["seconds"] = time.perf_counter() - t0
+        rows[k] = row
+        emit("shared_stream_sweep", **row)
+        del sub, words, total, dw, dt, dec
+    return rows
+
+
+def ss_compress_peak(T, data, knobs: dict) -> dict:
+    """The device memory one compress at a point takes at its peak
+    (``torch.cuda.max_memory_allocated`` after a reset, less what was
+    allocated before)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    frame = T.compress(data, **knobs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return {"peak_bytes": peak, "input_bytes": len(data),
+            "frame_bytes": len(frame)}
 
 
 def ss_launch_shape(data, frame: bytes, knobs: dict) -> dict:
@@ -2980,6 +3243,7 @@ def ss_point(T, data, name: str, lat: dict, mhz: float) -> dict:
     out = {"frame_bytes": len(frame), "sha256": _sha(frame),
            "ratio": len(frame) / len(data), "knobs": knobs,
            "groups": groups, "launch_shape": shape,
+           "compress_peak": ss_compress_peak(T, data, knobs),
            "compress_GBps": len(data) / times["compress_s_warm"] / 1e9,
            "decompress_GBps": len(data) / times["decompress_s_warm"] / 1e9,
            **times}
@@ -3005,15 +3269,24 @@ def phase_shared_stream(T, data) -> dict:
     t0 = time.perf_counter()
     cases = ss_kernel_cases()
     emit("shared_stream_kernels", **cases, seconds=time.perf_counter() - t0)
-    _, lat = sass_and_latencies()
+    text, lat = sass_and_latencies()
     mhz = LS.card_clocks()["sm_max_mhz"]
     points = {name: ss_point(T, data, name, lat, mhz)
               for name in SHARED_STREAM}
+    inp, _ = ss_launch_shape(data, T.compress(
+        data, **SHARED_STREAM["fse_default"][0]), SHARED_STREAM[
+            "fse_default"][0])
+    info = ss_kernel_info(text, inp["L"], inp["packed"].shape[1])
+    emit("shared_stream_kernel_info", **info)
+    sweep = ss_sweep(inp, lat, mhz)
+    del inp
     worst = max([cases["max_abs_err"]]
-                + [p["launch_shape"]["max_abs_err"] for p in points.values()])
+                + [p["launch_shape"]["max_abs_err"] for p in points.values()]
+                + [r["plain_first_block_err"] for r in sweep.values()])
     emit("shared_stream", seconds=time.perf_counter() - t0,
          max_abs_err=worst, sm_max_mhz=mhz)
-    return {"points": points, "max_abs_err": worst}
+    return {"points": points, "max_abs_err": worst, "sweep": sweep,
+            "kernel_info": info}
 
 
 def run_single(T, PL, gg, data, card):
@@ -3238,7 +3511,7 @@ def _shared_stream_row(name, kind, replaces, launches, ss):
     top = pts["fse_default"]["launch_shape"]
     k2 = pts["fse_k2"]["launch_shape"]["plain"]
     keys = ("ms", "wrapper_ms", "bytes_ms", "chain_ms", "bound_ms",
-            "bound_by", "binds", "share_of_bound", "GBps")
+            "bound_by", "binds", "share_of_bound", "GBps", "launch")
     return {"name": name, "route": "cuda",
             "source": "entropy_coders_tpu_torch/csrc/fse_coder.cu",
             "replaces": replaces, "launches": launches,
@@ -3255,8 +3528,14 @@ def _shared_stream_row(name, kind, replaces, launches, ss):
                            "L": r["launch_shape"]["L"],
                            "R": r["launch_shape"]["R"],
                            **{key: r["launch_shape"][kind][key]
-                              for key in keys}}
-                       for p, r in pts.items()}}
+                              for key in keys},
+                           "parent_in_turns": (r["launch_shape"]["in_turns"]
+                                               or {}).get(kind)}
+                       for p, r in pts.items()},
+            "sweep": {k: {f"kernel{path}": r[f"kernel{path}"][kind]["ms"]
+                          for path in (0, 1, 2)
+                          if kind in r.get(f"kernel{path}", {})}
+                      for k, r in ss["sweep"].items()}}
 
 
 def print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,

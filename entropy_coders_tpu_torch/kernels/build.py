@@ -77,15 +77,24 @@ _SIGNATURES = {
     # stream (tables.cu; the same for the empty launch of that shape)
     "ect_build_tables": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ect_build_tables_empty": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # words, total_bits, packed, syms, emit, finals, done, cursor, err,
-    # fstate, B, Wd, k, L, size, R, stream (fse_coder.cu, D5)
-    "ect_fse_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
-                       _I, _I, _I, _P],
+    # words, total_bits, packed, syms, emit, finals, done, cursor, err, B,
+    # Wd, k, L, size, R, stream (fse_coder.cu, D5)
+    "ect_fse_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
+                       _I, _I, _P],
     # syms, valid, init_syms, finish_slots, table, tt_bits, tt_fs, words,
-    # total_bits, err, sbits, svals, fstate, B, R, k, L, size, W, stream
-    # (fse_coder.cu, D4)
-    "ect_fse_encode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _LL, _P],
+    # total_bits, err, B, R, k, L, size, W, stream (fse_coder.cu, D4)
+    "ect_fse_encode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _LL, _P],
+    # the same with the kernel named first (0 D5 one-thread, 1 wide, 2
+    # one-warp): the k sweep's entries
+    "ect_fse_decode_path": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL,
+                            _I, _I, _I, _I, _P],
+    "ect_fse_encode_path": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _I, _I, _LL, _P],
+    # dir, path, k, L, size, checked, int out[10] -> a launch's kernel,
+    # lanes, threads, shared memory, registers, spills, CTAs an SM, ring,
+    # sub-round, blocks a CTA (fse_coder.cu)
+    "ect_fse_launch_info": [_I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -327,16 +327,12 @@ def encode_core(syms, valid, init_syms, finish_slots, tables, *, k: int,
     if B:
         err = (torch.full((B,), -1, dtype=torch.int64, device=dev)
                if checked else None)
-        sbits = torch.empty((B, R, k), dtype=torch.uint8, device=dev)
-        svals = torch.empty((B, R, k), dtype=torch.int16, device=dev)
-        fstate = torch.empty((B, k), dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             _launch(lib.ect_fse_encode, syms.data_ptr(), valid.data_ptr(),
                     init_syms.data_ptr(), finish_slots.data_ptr(),
                     table.data_ptr(), tt_bits.data_ptr(), tt_fs.data_ptr(),
                     words.data_ptr(), total_bits.data_ptr(),
                     None if err is None else err.data_ptr(),
-                    sbits.data_ptr(), svals.data_ptr(), fstate.data_ptr(),
                     B, R, k, L, size, W, _stream(dev))
         ENCODE_LAUNCHES += 1
         if checked:
@@ -389,14 +385,13 @@ def decode_core(words, total_bits, packed, *, k: int, L: int, R: int,
     if B:
         err = (torch.full((B,), -1, dtype=torch.int64, device=dev)
                if checked else None)
-        fstate = torch.empty((B, k), dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             _launch(lib.ect_fse_decode, words.data_ptr(),
                     total_bits.data_ptr(), packed.data_ptr(), syms.data_ptr(),
                     emit_count.data_ptr(), finals.data_ptr(), done.data_ptr(),
                     cursor.data_ptr(),
                     None if err is None else err.data_ptr(),
-                    fstate.data_ptr(), B, Wd, k, L, size, R, _stream(dev))
+                    B, Wd, k, L, size, R, _stream(dev))
         DECODE_LAUNCHES += 1
         if checked:
             _check_error(err, lambda s: _decode_check(s, size, Wd))

@@ -716,16 +716,23 @@ def tables_sweep(data: np.ndarray, device="cuda") -> dict:
 
 
 def load_parent(old_root: Path) -> ctypes.CDLL:
-    """Build ``old_root``'s ``tables.cu``, ``pl_decode.cu`` and
-    ``pl_decode_layout.cu`` into a library of their own (one nvcc a source,
-    started together, the current flags; ``kernels.build.compile_library``)
-    and load it. ``lib.path`` is the library; ``lib.tables_half`` says
-    whether its D3 launcher takes a half and a launch shape (else it builds
-    both halves, one CTA a table), ``lib.layout_threads`` whether its layout
-    launcher takes B1's CTA size and refill group."""
+    """Build ``old_root``'s ``tables.cu``, ``pl_decode.cu``,
+    ``pl_decode_layout.cu`` and, where it has one, ``fse_coder.cu`` into a
+    library of their own (one nvcc a source, started together, the current
+    flags; ``kernels.build.compile_library``) and load it. ``lib.path`` is
+    the library; ``lib.tables_half`` says whether its D3 launcher takes a
+    half and a launch shape (else it builds both halves, one CTA a table),
+    ``lib.layout_threads`` whether its layout launcher takes B1's CTA size
+    and refill group, ``lib.fse`` whether it has D4/D5 and
+    ``lib.fse_scratch`` whether their launchers take scratch in device
+    memory (D4's slot bits and values and both kernels' final states, as
+    the commit's wrapper allocated them)."""
     csrc = old_root / "entropy_coders_tpu_torch" / "csrc"
     srcs = [csrc / f"{n}.cu" for n in ("tables", "pl_decode",
                                        "pl_decode_layout")]
+    fse = csrc / "fse_coder.cu"
+    if fse.exists():
+        srcs.append(fse)
     h = hashlib.sha256(b"".join(p.read_bytes() for p in sorted(
         csrc.glob("*.cu*")))).hexdigest()[:16]
     out = KB.build_dir() / f"libect_torch_parent_{h}.so"
@@ -742,6 +749,8 @@ def load_parent(old_root: Path) -> ctypes.CDLL:
 
     lib.tables_half = "int half" in head(srcs[0], "ect_build_tables")
     lib.layout_threads = "int T" in head(srcs[2], "ect_pl_decode_layout")
+    lib.fse = fse.exists()
+    lib.fse_scratch = lib.fse and "sbits" in head(fse, "ect_fse_encode")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ect_build_tables.argtypes = (KB._SIGNATURES["ect_build_tables"]
                                      if lib.tables_half
@@ -750,8 +759,17 @@ def load_parent(old_root: Path) -> ctypes.CDLL:
     lib.ect_pl_decode_layout.argtypes = (
         KB._SIGNATURES["ect_pl_decode_layout"] if lib.layout_threads
         else [P] * 7 + [I] * 6 + [P])
-    for fn in (lib.ect_build_tables, lib.ect_pl_decode,
-               lib.ect_pl_decode_layout):
+    fns = [lib.ect_build_tables, lib.ect_pl_decode, lib.ect_pl_decode_layout]
+    if lib.fse:
+        LL = ctypes.c_longlong
+        lib.ect_fse_decode.argtypes = (
+            [P] * 10 + [I, LL, I, I, I, I, P] if lib.fse_scratch
+            else KB._SIGNATURES["ect_fse_decode"])
+        lib.ect_fse_encode.argtypes = (
+            [P] * 13 + [I, I, I, I, I, LL, P] if lib.fse_scratch
+            else KB._SIGNATURES["ect_fse_encode"])
+        fns += [lib.ect_fse_decode, lib.ect_fse_encode]
+    for fn in fns:
         fn.restype = ctypes.c_int
     return lib
 
@@ -784,7 +802,8 @@ def current_kernels() -> ctypes.CDLL:
     kernels the same way."""
     lib = KB.load()
     lib.path = KB.build()
-    lib.tables_half = lib.layout_threads = True
+    lib.tables_half = lib.layout_threads = lib.fse = True
+    lib.fse_scratch = False
     return lib
 
 

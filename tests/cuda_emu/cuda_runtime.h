@@ -6,8 +6,8 @@
 // statics (so blocks that use them run one after the other). Shuffles
 // exchange through a 32-slot array per warp: write, wait, read, wait. Fences
 // are sequentially consistent fences, __nanosleep a yield, and __trap throws
-// EmuTrap, which the launcher catches. __match_any_sync exchanges through
-// the same array. A thread-block cluster is a set of blocks run at once:
+// EmuTrap, which the launcher catches. __match_any_sync, __any_sync and
+// __ballot_sync exchange through the same array. A thread-block cluster is a set of blocks run at once:
 // cooperative_groups::this_cluster() reads the cluster (EmuCluster: a
 // barrier over all its threads, each block's shared memory) that the
 // launcher put in `emu_cluster`. Used by
@@ -16,7 +16,8 @@
 // tests/test_torch_tables_emulated.py (tables_main.cpp),
 // tests/test_torch_lane_decode_emulated.py (lane_decode_main.cpp) and
 // tests/test_torch_coder_emulated.py (fse_coder_main.cpp). atomicOr and
-// atomicMin are std::atomic_ref operations.
+// atomicMin are std::atomic_ref operations, __syncthreads_or a vote
+// between barriers.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -28,15 +29,17 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
-#define __align__(x) alignas(x)
+#define __align__(x) __attribute__((aligned(x)))
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 struct int4 { int x, y, z, w; };
+struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
+inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return {a, b, c, d};
 }
@@ -52,6 +55,14 @@ inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned shift) {
   return (uint32_t)(v >> (shift & 31));
 }
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+// bytes of (y:x) picked by the selector's low four nibbles (no sign mode)
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = (uint64_t)y << 32 | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; i++)
+    r |= (uint32_t)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+  return r;
+}
 struct D3 { unsigned x = 0, y = 0, z = 0; };
 extern thread_local D3 threadIdx, blockIdx;
 extern D3 gridDim, blockDim;
@@ -66,6 +77,18 @@ extern thread_local std::barrier<>* emu_block_bar;
 extern unsigned char* emu_dyn_smem;  // the block's dynamic shared memory
 inline void __syncwarp(unsigned = 0xFFFFFFFFu) { emu_warp->bar.arrive_and_wait(); }
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
+// the block's OR of `pred`: a vote between two barriers, reset after a third
+// (blocks that use it run one after the other)
+inline int __syncthreads_or(int pred) {
+  static std::atomic<int> vote{0};
+  emu_block_bar->arrive_and_wait();
+  if (pred) vote.fetch_or(1);
+  emu_block_bar->arrive_and_wait();
+  const int r = vote.load();
+  emu_block_bar->arrive_and_wait();
+  if (threadIdx.x == 0) vote.store(0);
+  return r;
+}
 template <class T> T emu_shfl(T v, int src) {
   uint64_t raw = 0;
   std::memcpy(&raw, &v, sizeof(T));
@@ -88,6 +111,24 @@ template <class T> T __shfl_up_sync(unsigned, T v, int d) {
 template <class T> T __shfl_down_sync(unsigned, T v, int d) {
   const int lane = threadIdx.x & 31;
   return emu_shfl(v, lane + d < 32 ? lane + d : lane);
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int lane = threadIdx.x & 31;
+  emu_warp->slot[lane] = pred != 0;
+  emu_warp->bar.arrive_and_wait();
+  unsigned bits = 0;
+  for (int i = 0; i < 32; i++) bits |= (unsigned)emu_warp->slot[i] << i;
+  emu_warp->bar.arrive_and_wait();
+  return bits;
+}
+inline int __any_sync(unsigned, int pred) {
+  const int lane = threadIdx.x & 31;
+  emu_warp->slot[lane] = pred != 0;
+  emu_warp->bar.arrive_and_wait();
+  int any = 0;
+  for (int i = 0; i < 32; i++) any |= (int)emu_warp->slot[i];
+  emu_warp->bar.arrive_and_wait();
+  return any;
 }
 inline unsigned __match_any_sync(unsigned, unsigned v) {
   const int lane = threadIdx.x & 31;
