@@ -75,8 +75,9 @@ on the whole launch shape and at k = 2 on its first two blocks at all
 65,535 rounds, each plain version's time beside the kernel's; with
 ``build/parent`` holding a checkout of a parent commit, its D4/D5 and
 this commit's in turns at both launch shapes (old, new, new, old, outputs
-equal); the peak device memory of one compress at each point; the C++
-host codec at k = 2. Then each kernel's registers, local memory,
+equal); the peak device memory of one compress at each point; the
+host's time in each ``ect.*`` stage (the MODE_FSE parts among them),
+medians of three warm runs; the C++ host codec at k = 2. Then each kernel's registers, local memory,
 resident CTAs an SM and round loop in the SASS at k = 1024 and 2, and the
 k sweep: 1,024 blocks of 128 KiB at L = 11 for k in {1, 2, 4, 8, 32, 128,
 1024}, every kernel that takes k (D5's one-thread, the one-warp and the
@@ -160,8 +161,20 @@ drives the multi-device path (``entropy_coders_tpu_torch.parallel``):
   then, as B3's yardstick, NCCL's ``all_gather_into_tensor`` of the same
   per-rank chunk, one process a card (this script run with
   ``--nccl-worker``), by CUDA events and the host clock.
-* ``sharded``: the throughput point through ``compress`` without a
-  sharding, ``parallel.compress`` / ``decompress`` on eight virtual ranks
+* ``sharded``: first the shared-stream (MODE_FSE) groups on a mesh, the
+  128 MiB data at 128 KiB blocks, k = 1024, ``lanes=False``: the
+  unsharded frame is the JAX package's (sha256); a round trip on eight
+  virtual ranks launches D3, D4 and D5 once a share a direction and
+  nothing else, runs no plain core on a CUDA tensor, and nothing inside
+  a MODE_FSE dispatch waits for the card (``torch.cuda``'s sync debug
+  mode); the unsharded call, the eight ranks and ``default_mesh()`` in
+  turns, beside the parent commit's port on the same meshes when
+  ``build/parent`` holds it, each one's compress peak device memory; 5
+  blocks over 8 ranks, a range decode, and a missing marker (at the last
+  share's dispatch) and a flipped byte (at its drain) raising
+  ValueError, each followed by an exact decode; with two cards or more,
+  one card against all of them, the parent beside. Then the throughput
+  point through ``compress`` without a sharding, ``parallel.compress`` / ``decompress`` on eight virtual ranks
   and on ``default_mesh()``, in turns (a warm-up round, then three, the
   order reversed every other round; medians), and 5 blocks over 8 ranks:
   each frame equals ``compress``'s, byte for byte, and round-trips; with
@@ -206,6 +219,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -2206,23 +2220,31 @@ def _codec(T, P, mesh):
             lambda f: P.decompress(f, mesh))
 
 
-def mesh_turns(T, P, meshes, data, knobs, want, runs: int = 3) -> dict:
+def mesh_turns(T, P, meshes, data, knobs, want, runs: int = 3,
+               parent=None) -> dict:
     """compress + decompress of ``data`` on each mesh of ``meshes`` (name
     -> mesh, None for no sharding), one warm-up round, then ``runs``
     rounds in turns, the order reversed every other round (ABC, CBA, ...).
-    Host clock, every card synchronised before and after each call, and
-    the host's time in each ``ect.*`` stage (``stage_clocks``); every
-    frame must equal ``want`` and every round trip be exact. Medians,
-    every run and the warm-up round (``*_s_cold``), in seconds; GB/s of
-    raw input at the medians."""
-    names = list(meshes)
+    With ``parent`` (the parent commit's port, ``parent_port``) its calls
+    on each mesh take their turns too, as ``parent_<name>``. Host clock,
+    every card synchronised before and after each call, and the host's
+    time in each ``ect.*`` stage (``stage_clocks``: this commit's stages
+    only); every frame must equal ``want`` and every round trip be exact.
+    Medians, every run and the warm-up round (``*_s_cold``), in seconds;
+    GB/s of raw input at the medians."""
+    codecs = {name: (_codec(T, P, mesh), mesh)
+              for name, mesh in meshes.items()}
+    if parent is not None:
+        codecs |= {f"parent_{name}": (_codec(*parent, mesh), mesh)
+                   for name, mesh in meshes.items()}
+    names = list(codecs)
     times = {n: {"compress_s": [], "decompress_s": [], "stages": []}
              for n in names}
     order, spent = [], {}
     with stage_clocks(spent):
         for r in range(runs + 1):
             for name in (names if r % 2 else names[::-1]):
-                comp, decomp = _codec(T, P, meshes[name])
+                (comp, decomp), _ = codecs[name]
                 spent.clear()
                 _sync_all()
                 t0 = time.perf_counter()
@@ -2251,7 +2273,8 @@ def mesh_turns(T, P, meshes, data, knobs, want, runs: int = 3) -> dict:
         t["stage_median_ms"] = {
             st: statistics.median(x.get(st, 0.0) for x in stages) * 1e3
             for st in sorted(set().union(*stages))}
-        t["ranks"] = 1 if meshes[name] is None else len(meshes[name])
+        mesh = codecs[name][1]
+        t["ranks"] = 1 if mesh is None else len(mesh)
     return {"order": order, "input_bytes": len(data), "frame_bytes": len(want),
             **times}
 
@@ -2309,36 +2332,249 @@ def device_overlap(fn, tries: int = 3) -> dict:
             "union_over_sum": union / total if total else None}
 
 
-def mesh_cards(T, P, data, knobs, runs: int = 3) -> dict:
+def mesh_cards(T, P, data, knobs, runs: int = 3, want=None,
+               parent=None) -> dict:
     """One card (``default_mesh(1)``) against every card
     (``default_mesh()``) on ``data``: in turns (``mesh_turns``, every
-    frame equal to the unsharded one-card frame), then each mesh's
-    compress and decompress once under the profiler (``device_overlap``),
-    their frames and round trip checked."""
-    want = T.compress(data, device="cuda", **knobs)
+    frame equal to ``want``, by default the unsharded one-card frame; with
+    ``parent``, the parent commit's port on both meshes in the same
+    turns), then each port's compress and decompress once a mesh under the
+    profiler (``device_overlap``), their frames and round trip checked."""
+    if want is None:
+        want = T.compress(data, device="cuda", **knobs)
     meshes = {"one_card": P.default_mesh(1), "all_cards": P.default_mesh()}
     out = {"knobs": knobs, **mesh_turns(T, P, meshes, data, knobs, want,
-                                        runs)}
-    for name, mesh in meshes.items():
-        frames, backs = [], []
-        c = device_overlap(
-            lambda: frames.append(P.compress(data, mesh, **knobs)))
-        d = device_overlap(lambda: backs.append(P.decompress(want, mesh)))
-        check(all(f == want for f in frames),
-              f"overlap: the frame on {name} differs")
-        check(all(_same_bytes(b, data) for b in backs),
-              f"overlap: round trip on {name}")
-        out[name]["overlap"] = {"compress": c, "decompress": d}
+                                        runs, parent)}
+    ports = {"": P} | ({"parent_": parent[1]} if parent else {})
+    for prefix, port in ports.items():
+        for name, mesh in meshes.items():
+            frames, backs = [], []
+            c = device_overlap(
+                lambda: frames.append(port.compress(data, mesh, **knobs)))
+            d = device_overlap(
+                lambda: backs.append(port.decompress(want, mesh)))
+            check(all(f == want for f in frames),
+                  f"overlap: the frame on {prefix}{name} differs")
+            check(all(_same_bytes(b, data) for b in backs),
+                  f"overlap: round trip on {prefix}{name}")
+            out[prefix + name]["overlap"] = {"compress": c, "decompress": d}
     return out
 
 
+def parent_port():
+    """The parent commit's port when ``build/parent`` holds a checkout of
+    it, else None: its package imported under the name
+    ``parent_ect_torch`` (this commit's modules untouched), as (package,
+    its ``parallel``). Its libraries build from its own sources into its
+    own ``build/``; where this commit's library of the same name (a hash
+    of the sources and flags) is built, it is copied, not built again."""
+    if "port" in _PARENT:
+        return _PARENT["port"]
+    import shutil
+
+    from entropy_coders_tpu_torch.kernels import build as KB
+    from entropy_coders_tpu_torch.native import build as NB
+
+    name = "parent_ect_torch"
+    pkg = ROOT / "build" / "parent" / "entropy_coders_tpu_torch"
+    port = None
+    if (pkg / "__init__.py").exists():
+        spec = importlib.util.spec_from_file_location(
+            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        for mine, theirs in ((KB, f"{name}.kernels.build"),
+                             (NB, f"{name}.native.build")):
+            src = mine.library_path()
+            dst = importlib.import_module(theirs).library_path()
+            if src.exists() and dst.name == src.name and not dst.exists():
+                dst.parent.mkdir(parents=True, exist_ok=True)
+                shutil.copyfile(src, dst)
+        port = (mod, importlib.import_module(f"{name}.parallel"))
+    _PARENT["port"] = port
+    return port
+
+
+def compress_peak(fn) -> dict:
+    """The device memory a compress ``fn()`` takes at its peak on each
+    card (``torch.cuda.max_memory_allocated`` after a reset, less what was
+    allocated before) and their sum."""
+    import torch
+
+    cards = range(torch.cuda.device_count())
+    _sync_all()
+    base = [torch.cuda.memory_allocated(i) for i in cards]
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    frame = fn()
+    _sync_all()
+    peaks = [torch.cuda.max_memory_allocated(i) - b
+             for i, b in zip(cards, base)]
+    return {"peak_bytes": sum(peaks), "peak_bytes_by_card": peaks,
+            "frame_bytes": len(frame)}
+
+
+@contextlib.contextmanager
+def syncs_in(module, names, counts: dict):
+    """While open, each call of ``module.<name>`` (for each of ``names``)
+    runs under ``torch.cuda.set_sync_debug_mode("warn")``, and each warning
+    of an operation that waited for a card (a blocking copy, a stream
+    synchronisation, ``.item()``) adds where it was raised to
+    ``counts[name]``, a list."""
+    import warnings
+
+    import torch
+
+    saved = {n: getattr(module, n) for n in names}
+
+    def watched(name, fn):
+        def call(*args, **kwargs):
+            counts.setdefault(name, [])
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as seen:
+                    warnings.simplefilter("always")
+                    return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                counts[name] += [f"{w.filename}:{w.lineno}: {w.message}"
+                                 for w in seen if "synchronizing CUDA "
+                                 "operation" in str(w.message)]
+        return call
+
+    for n, fn in saved.items():
+        setattr(module, n, watched(n, fn))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def _fse_bad_last_block(TF, frame: bytes, how: str) -> bytes:
+    """``frame`` (MODE_FSE blocks with their headers) with its last
+    block's payload zeroed (no marker bit: its share's checks refuse it)
+    or one byte of it flipped (its decode ends at another length: its
+    share's drain refuses it)."""
+    pf = TF._parse_frame(frame)
+    i = pf.n_blocks - 1
+    check(pf.modes[i] == TF.MODE_FSE, "the last block is not MODE_FSE")
+    sec = pf.section(i)
+    payload = TF._read_block_header(sec)[2]
+    at = int(pf.offs[i]) + len(sec) - len(payload)
+    bad = bytearray(frame)
+    if how == "no_marker":
+        bad[at: at + len(payload)] = bytes(len(payload))
+    else:
+        bad[at + len(payload) // 2] ^= 0x5A
+    return bytes(bad)
+
+
+def sharded_shared_stream(T, P, data, virtual8) -> dict:
+    """The shared-stream (MODE_FSE) groups on a mesh: the 128 MiB data at
+    ``SHARED_STREAM["fse_default"]``'s knobs (128 KiB blocks, k = 1024,
+    ``lanes=False``: 1,024 blocks in one L = 11 group). The unsharded call
+    gives the pinned frame (sha256). One round trip on the 8 virtual
+    ranks: D3/D4/D5 once a share a direction, no other kernel, no plain
+    core on a CUDA tensor, and no operation inside a MODE_FSE dispatch
+    that waits for the card (``syncs_in``). Then the unsharded call, the 8
+    ranks and ``default_mesh()`` in turns (``mesh_turns``), the parent
+    commit's port beside them when ``build/parent`` holds it; each one's
+    compress peak device memory; 5 blocks over the 8 ranks, a range
+    decode of them, and two corrupt copies that must raise ValueError (at
+    the last share's dispatch, at its drain), each followed by an exact
+    decode on the same ranks. With two cards or more, one card against all
+    (``mesh_cards``, the parent beside)."""
+    import numpy as np
+    import torch
+
+    from entropy_coders_tpu_torch import frame as TF
+
+    knobs, want_bytes, want_sha = SHARED_STREAM["fse_default"]
+    want = T.compress(data, device="cuda", **knobs)
+    check(len(want) == want_bytes and _sha(want) == want_sha,
+          f"sharded MODE_FSE: frame {len(want)} bytes, sha256 {_sha(want)}")
+    pf = TF._parse_frame(want)
+    log2 = np.array([TF._read_block_header(pf.section(i))[1]
+                     for i in range(pf.n_blocks)])
+    shares = sum(len(TF._shares(int((log2 == L).sum()), virtual8))
+                 for L in np.unique(log2))
+
+    # the watch sees a sync where there is one: ``.item()`` waits
+    control, seen = types.SimpleNamespace(
+        item=lambda: torch.ones(1, device="cuda").item()), {}
+    with syncs_in(control, ("item",), seen):
+        control.item()
+    check(len(seen["item"]) == 1, f"the sync watch saw {seen} in .item()")
+    c0, plain, syncs = _launch_counts_all(), {}, {}
+    with plain_cores_on_cuda(plain), syncs_in(
+            TF, ("_encode_dispatch_fse", "_decode_dispatch_fse"), syncs):
+        frame = P.compress(data, virtual8, **knobs)
+        back = P.decompress(frame, virtual8)
+    got = {k: v - c0[k] for k, v in _launch_counts_all().items()}
+    check(frame == want and _same_bytes(back, data),
+          "sharded MODE_FSE: 8 ranks' frame or round trip")
+    expect = {"decode": 0, "encode": 0, "merge": 0, "split": 0,
+              "tables": 2 * shares, "fse_encode": shares,
+              "fse_decode": shares}
+    check(got == expect, f"sharded MODE_FSE: a round trip on 8 ranks "
+          f"launched {got}, expected {expect}")
+    check(not plain, f"sharded MODE_FSE: plain cores on CUDA: {plain}")
+    check(not any(syncs.values()), f"sharded MODE_FSE: a dispatch waited "
+          f"for the card: {syncs}")
+
+    parent = parent_port()
+    meshes = {"unsharded": None, "virtual_8": virtual8,
+              "default_mesh": P.default_mesh()}
+    turns = mesh_turns(T, P, meshes, data, knobs, want, parent=parent)
+    ports = {"": (T, P)} | ({"parent_": parent} if parent else {})
+    peaks = {prefix + name: compress_peak(
+        lambda: _codec(*port, mesh)[0](data, **knobs))
+        for prefix, port in ports.items() for name, mesh in meshes.items()}
+
+    bs = knobs["block_size"]
+    five = data[: 5 * bs]
+    frame5 = P.compress(five, virtual8, **knobs)
+    check(frame5 == T.compress(five, device="cuda", **knobs),
+          "sharded MODE_FSE: 5 blocks over 8 ranks: frame != compress's")
+    check(P.decompress(frame5, virtual8) == five.tobytes(),
+          "sharded MODE_FSE: 5 blocks over 8 ranks: round trip")
+    check(P.decompress(frame5, virtual8, start=bs + 7, length=2 * bs)
+          == five[bs + 7: 3 * bs + 7].tobytes(),
+          "sharded MODE_FSE: range decode")
+    corrupt = {}
+    for how, match in (("no_marker", "missing marker bit"),
+                       ("flip", "corrupt frame")):
+        try:
+            P.decompress(_fse_bad_last_block(TF, frame5, how), virtual8)
+            corrupt[how] = "no error"
+        except ValueError as e:
+            corrupt[how] = str(e)
+        check(match in corrupt[how], f"sharded MODE_FSE: the {how} frame "
+              f"gave {corrupt[how]!r}, expected a ValueError of {match!r}")
+        check(P.decompress(frame5, virtual8) == five.tobytes(),
+              f"sharded MODE_FSE: the decode after the {how} frame")
+
+    cards = (mesh_cards(T, P, data, knobs, want=want, parent=parent)
+             if torch.cuda.device_count() >= 2 else
+             "one card: one card against all needs >= 2")
+    return {"knobs": knobs, "frame_bytes": len(want), "sha256": _sha(want),
+            "shares_8_ranks": shares, "launches_8_ranks": got,
+            "dispatch_syncs": syncs, "parent": parent is not None,
+            "meshes": turns, "compress_peak": peaks,
+            "five_blocks_bytes": len(frame5), "corrupt": corrupt,
+            "cards": cards}
+
+
 def phase_sharded(T, data, single_frame):
-    """The throughput point through parallel.compress/decompress; the
-    unsharded call, eight virtual ranks and ``default_mesh()`` in turns;
-    with two cards or more, one card against all of them at 128 MiB and at
-    1 GiB in config 4's shape (BASELINE.md: shared table, 4 MiB blocks,
-    k=8192, the default table-log policy), each with the cards' device
-    windows."""
+    """The shared-stream (MODE_FSE) groups on a mesh first
+    (``sharded_shared_stream``), then the throughput point through
+    parallel.compress/decompress; the unsharded call, eight virtual ranks
+    and ``default_mesh()`` in turns; with two cards or more, one card
+    against all of them at 128 MiB and at 1 GiB in config 4's shape
+    (BASELINE.md: shared table, 4 MiB blocks, k=8192, the default
+    table-log policy), each with the cards' device windows."""
     import numpy as np
     import torch
 
@@ -2348,6 +2584,9 @@ def phase_sharded(T, data, single_frame):
 
     dev = torch.device("cuda", 0)
     virtual8 = (dev,) * 8
+    t0 = time.perf_counter()
+    fse = sharded_shared_stream(T, P, data, virtual8)
+    emit("sharded_shared_stream", **fse, seconds=time.perf_counter() - t0)
     turns = mesh_turns(T, P, {"unsharded": None, "virtual_8": virtual8,
                               "default_mesh": P.default_mesh()},
                        data, THROUGHPUT, single_frame)
@@ -3179,22 +3418,6 @@ def ss_sweep(inp: dict, lat: dict, mhz: float) -> dict:
     return rows
 
 
-def ss_compress_peak(T, data, knobs: dict) -> dict:
-    """The device memory one compress at a point takes at its peak
-    (``torch.cuda.max_memory_allocated`` after a reset, less what was
-    allocated before)."""
-    import torch
-
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    frame = T.compress(data, **knobs)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    return {"peak_bytes": peak, "input_bytes": len(data),
-            "frame_bytes": len(frame)}
-
-
 def ss_launch_shape(data, frame: bytes, knobs: dict) -> dict:
     """The inputs of the largest table-log group's D4/D5 launch at a
     point: the blocks of the input and the normalized counts the frame's
@@ -3215,10 +3438,24 @@ def ss_launch_shape(data, frame: bytes, knobs: dict) -> dict:
     return _ss_inputs(np.ascontiguousarray(blocks), nt, k, L), len(set(Ls))
 
 
+def ss_stages(T, data, knobs: dict, frame: bytes, runs: int = 3) -> dict:
+    """The host's time in each ``ect.*`` stage of a compress and a
+    decompress at a point (the MODE_FSE parts ``ect.compress.fse_*`` and
+    ``ect.decompress.fse_*`` among them), medians of ``runs`` warm runs
+    after a warm-up (``mesh_turns`` on the unsharded call alone), beside
+    the runs' wall times."""
+    from entropy_coders_tpu_torch import parallel as P
+
+    t = mesh_turns(T, P, {"unsharded": None}, data, knobs, frame,
+                   runs)["unsharded"]
+    return {k: t[k] for k in ("compress_median_s", "decompress_median_s",
+                              "stage_median_ms")}
+
+
 def ss_point(T, data, name: str, lat: dict, mhz: float) -> dict:
     """One 128 MiB shared-stream point: compress and decompress, cold and
-    warm, the frame's bytes and sha256 against the JAX package's, the
-    launches of a round trip (D4/D5 and D3 one a table-log group a
+    warm, the host's time by stage (``ss_stages``), the frame's bytes and
+    sha256 against the JAX package's, the launches of a round trip (D4/D5 and D3 one a table-log group a
     direction, B1/B2 and D1/D2 none, no plain core on a CUDA tensor),
     D4/D5 at the point's launch shape against the plain versions on the
     same tensors (``SS_PLAIN_BLOCKS`` of its blocks)."""
@@ -3243,7 +3480,9 @@ def ss_point(T, data, name: str, lat: dict, mhz: float) -> dict:
     out = {"frame_bytes": len(frame), "sha256": _sha(frame),
            "ratio": len(frame) / len(data), "knobs": knobs,
            "groups": groups, "launch_shape": shape,
-           "compress_peak": ss_compress_peak(T, data, knobs),
+           "stages": ss_stages(T, data, knobs, frame),
+           "compress_peak": {"input_bytes": len(data), **compress_peak(
+               lambda: T.compress(data, **knobs))},
            "compress_GBps": len(data) / times["compress_s_warm"] / 1e9,
            "decompress_GBps": len(data) / times["decompress_s_warm"] / 1e9,
            **times}
@@ -3389,11 +3628,10 @@ def run_parallel(T, PL, R, data):
     PL.DECODE_LAUNCHES = 0
     PL.ENCODE_LAUNCHES = 0
     R.RING_LAUNCHES = 0
-    before = _device_host_counts()
+    before = _launch_counts_all()
     phase_sharded(T, data, single)
-    par = {"decode": PL.DECODE_LAUNCHES, "encode": PL.ENCODE_LAUNCHES,
-           "ring": R.RING_LAUNCHES,
-           **{k: v - before[k] for k, v in _device_host_counts().items()}}
+    par = {"ring": R.RING_LAUNCHES,
+           **{k: v - before[k] for k, v in _launch_counts_all().items()}}
     check(min(par.values()) > 0,
           f"a kernel of the multi-device path never launched: {par}")
     emit("launches_parallel", **par)

@@ -36,11 +36,15 @@ its sections land in block order. No share is padded. As the JAX package's
 one SPMD call over the mesh runs every chip at once, every share's work is
 queued on its own device before the host drains any: the h2d of the blocks
 (from pinned staging when the mesh spans several cards), the histograms
-(CUDA's ``bincount`` waits for its own card's copy), and a lane group's
-chunks (compress: every share of a table-log group, the groups in turn;
-decompress: every share of every group). Then the host drains the shares
-in block order, so one share's assembly or write-back overlaps the device
-work of the shares after it. ``sharding`` changes no byte of the frame.
+(CUDA's ``bincount`` waits for its own card's copy), a lane group's chunks,
+and a shared-stream (MODE_FSE) group's symbols, tables, encode or decode
+and the d2h of its outputs. Compress takes a table-log group at a time,
+every share of it dispatched before the first is drained; decompress
+dispatches every share of every group, MODE_FSE and per-lane, before the
+first drain. Then the host drains the shares in block order, so one
+share's assembly or write-back overlaps the device work of the shares
+after it. The unsharded call is the one-share case of the same code.
+``sharding`` changes no byte of the frame.
 """
 
 from __future__ import annotations
@@ -135,17 +139,20 @@ def _spans_cards(mesh) -> bool:
     return len({d for d in mesh if d.type == "cuda"}) > 1
 
 
-def _host_later(t: torch.Tensor):
+def _host_later(t: torch.Tensor, after=None, role: int = 0):
     """A zero-argument callable that returns ``t`` as host numpy: on CUDA
-    the d2h is queued now into pinned memory behind ``t``'s work and the
-    callable waits for that copy alone (``pl_coder._d2h``)."""
+    the d2h is queued now into pinned memory on copy stream ``role``,
+    behind event ``after`` (default: the work queued so far on ``t``'s
+    card), and the callable waits for that copy alone
+    (``pl_coder._d2h``)."""
     if t.device.type != "cuda":
-        return t.numpy
-    (host,), wait = PL._d2h([t], PL._launched(t.device), 0)
+        return lambda: to_numpy(t)
+    (host,), wait = PL._d2h(
+        [t], PL._launched(t.device) if after is None else after, role)
 
     def get():
         wait()
-        return host.numpy()
+        return to_numpy(host)
 
     return get
 
@@ -495,10 +502,10 @@ def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
     array ``blocks`` into ``sections[block_ids[j]]``. Each group splits into
     one contiguous share per entry of ``mesh``. With ``lanes``, eligible
     groups take the per-lane path (reading the device copies in ``placed``
-    where they hold the share): every share is dispatched on its own device
-    before any is drained. The others take the shared-stream path
-    (ops.coder), a share at a time. The groups run in turn, as in the JAX
-    package."""
+    where they hold the share); the others take the shared-stream path
+    (ops.coder). Either way every share of a group is dispatched on its own
+    device before the first is drained, and the drains run in block order.
+    The groups run in turn, as in the JAX package."""
     n = blocks.shape[1]
     layout = None  # shared-stream emission layout, built on first use
 
@@ -518,37 +525,109 @@ def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
                                  bit_pack=bit_pack)
             continue
         if layout is None:
-            layout = encode_layout(n, k)
-        for dev, r in shares:
-            _encode_group_fse(blocks[block_ids[r]], norm_tables[r], int(l2),
-                              k, shared_table, sections, block_ids[r], dev,
-                              layout)
+            layout = _FseLayout(n, k)
+        dispatched = [_encode_dispatch_fse(blocks[block_ids[r]],
+                                           norm_tables[r], int(l2), k, dev,
+                                           layout)
+                      for dev, r in shares]
+        # every share's bit counts are read and the d2h of its words queued
+        # before the first share's words are waited for, so that one
+        # share's assembly overlaps the copies of the shares after it
+        with _stage("ect.compress.fse_collect"):
+            for d in dispatched:
+                d.fetch()
+        for (_, r), d in zip(shares, dispatched):
+            _encode_drain_fse(d, norm_tables[r], int(l2), shared_table,
+                              sections, block_ids[r])
 
 
-def _encode_group_fse(blocks, norm_tables, l2, k, shared_table, sections,
-                      block_ids, dev, layout):
-    """Shared-stream (MODE_FSE) encode of the host blocks (B, n) sharing
-    table log ``l2`` on ``dev`` (ops.coder.encode_core: kernel D4 on CUDA).
-    The tables are built where the per-lane groups build theirs
-    (``PL.tables_from_norm``: kernel D3 on CUDA, the C++ build on the
-    CPU), as the JAX package builds them on its device."""
-    m, R, valid, finish_slots, W = layout
-    syms, init_syms = blocks_to_syms(blocks, m, R, k)
-    tabs = PL.tables_from_norm(norm_tables, l2, dev, half="encode")
-    words, total_bits = encode_core(
-        torch.from_numpy(np.ascontiguousarray(syms)).to(dev),
-        torch.from_numpy(valid).to(dev),
-        torch.from_numpy(np.ascontiguousarray(init_syms)).to(dev),
-        torch.from_numpy(finish_slots).to(dev),
-        (tabs.next_state, tabs.tt_bits, tabs.tt_fs), k=k, L=l2, W=W)
-    total_bits = total_bits.cpu().numpy()
-    # only the words the longest stream fills cross to the host
-    words = to_numpy(words[:, : _cdiv(int(total_bits.max()), 32)])
-    for j, bid in enumerate(block_ids):
-        nbytes = (int(total_bits[j]) + 7) // 8
-        payload = words[j, : _cdiv(nbytes, 4)].tobytes()[:nbytes]
-        sections[bid] = (payload if shared_table
-                         else _write_header(norm_tables[j], l2) + payload)
+class _FseLayout:
+    """The shared-stream emission layout of blocks of raw length n at k
+    lanes (``ops.coder.encode_layout``: m, R, W and the masks ``valid``
+    and ``finish_slots``), and the two masks on each device that asks for
+    them: uploaded once a device, not once a share."""
+
+    def __init__(self, n: int, k: int):
+        self.m, self.R, self.valid, self.finish_slots, self.W = \
+            encode_layout(n, k)
+        self._on: dict = {}
+
+    def on(self, dev: torch.device):
+        """(valid, finish_slots) on ``dev``."""
+        if dev not in self._on:
+            self._on[dev] = tuple(to_device(a, dev, non_blocking=True)
+                                  for a in (self.valid, self.finish_slots))
+        return self._on[dev]
+
+
+class _FseEncoded:
+    """One share's shared-stream encode as ``_encode_dispatch_fse`` queued
+    it: D4's (B, W) words on the card and the d2h of the streams' bit
+    counts. ``fetch`` waits for the bit counts (``total_bits``, host numpy)
+    and queues the d2h of only the words the longest stream fills, behind
+    this share's D4 and not behind the kernels queued after it; ``words``
+    waits for that copy."""
+
+    def __init__(self, words: torch.Tensor, total_bits: torch.Tensor):
+        self._words = words
+        self._after = (PL._launched(words.device)
+                       if words.device.type == "cuda" else None)
+        self._bits = _host_later(total_bits, self._after)
+        self._get = None
+        self.total_bits = None
+
+    def fetch(self) -> None:
+        if self._get is None:
+            self.total_bits = self._bits()
+            used = _cdiv(int(self.total_bits.max()), 32)
+            self._get = _host_later(self._words[:, :used], self._after, 1)
+            self._words = None
+
+    def words(self) -> np.ndarray:
+        self.fetch()
+        return self._get()
+
+
+def _encode_dispatch_fse(blocks, norm_tables, l2, k, dev, layout):
+    """Queue the shared-stream (MODE_FSE) encode of the host blocks (B, n)
+    sharing table log ``l2`` on ``dev``, waiting for nothing on the card:
+    the symbols laid out on the host (``blocks_to_syms``), their h2d from
+    pinned staging (a pageable copy would wait for the shares queued on
+    ``dev`` before it), the encode tables where the per-lane groups build
+    theirs (``PL.tables_from_norm``: kernel D3 on CUDA, the C++ build on the
+    CPU, as the JAX package builds them on its device), ops.coder's
+    encode_core (kernel D4 on CUDA) and the d2h of the streams' bit counts.
+    ``layout`` is the group's ``_FseLayout``. Returns the ``_FseEncoded``
+    that ``_encode_drain_fse`` takes."""
+    with _stage("ect.compress.fse_syms"):
+        syms, init_syms = blocks_to_syms(blocks, layout.m, layout.R, k)
+    with _stage("ect.compress.fse_h2d"):
+        syms = to_device(syms, dev, non_blocking=True)
+        init_syms = to_device(init_syms, dev, non_blocking=True)
+        valid, finish_slots = layout.on(dev)
+    with _stage("ect.compress.fse_dispatch"):
+        tabs = PL.tables_from_norm(norm_tables, l2, dev, half="encode")
+        return _FseEncoded(*encode_core(
+            syms, valid, init_syms, finish_slots,
+            (tabs.next_state, tabs.tt_bits, tabs.tt_fs), k=k, L=l2,
+            W=layout.W))
+
+
+def _encode_drain_fse(dispatched, norm_tables, l2, shared_table, sections,
+                      block_ids):
+    """Collect one share that ``_encode_dispatch_fse`` queued and assemble
+    its sections on the host: row j of ``norm_tables`` codes block
+    ``block_ids[j]`` into ``sections[block_ids[j]]``, with its histogram
+    header unless ``shared_table``."""
+    with _stage("ect.compress.fse_collect"):
+        words = dispatched.words()
+        total_bits = dispatched.total_bits
+    with _stage("ect.compress.fse_assemble"):
+        for j, bid in enumerate(block_ids):
+            nbytes = (int(total_bits[j]) + 7) // 8
+            payload = words[j, : _cdiv(nbytes, 4)].tobytes()[:nbytes]
+            sections[bid] = (payload if shared_table
+                             else _write_header(norm_tables[j], l2) + payload)
 
 
 def _encode_tail(tail, k, table_log, shared_table, s_shared, sections,
@@ -755,12 +834,15 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
                 raise ValueError(f"bad block mode {mode}")
 
     # each group splits into one contiguous share per mesh entry
-    for (rl, log2), items in groups.items():
-        for dev, lo, hi in _shares(len(items), mesh):
-            _decode_group(items[lo:hi], rl, log2, pf, out, base, dev)
-    pl_calls = [(items[lo:hi], rl, log2, dev)
-                for (rl, log2), items in pl_groups.items()
-                for dev, lo, hi in _shares(len(items), mesh)]
+    fse_calls, pl_calls = ([(items[lo:hi], rl, log2, dev)
+                            for (rl, log2), items in g.items()
+                            for dev, lo, hi in _shares(len(items), mesh)]
+                           for g in (groups, pl_groups))
+    # every share of every group, MODE_FSE and per-lane, is dispatched on
+    # its own device before the first is drained (the JAX package's one
+    # call over the mesh)
+    fse_dispatched = [_decode_dispatch_fse(items, rl, log2, pf, dev)
+                      for items, rl, log2, dev in fse_calls]
     # device repack: the span of the frame that holds a device's per-lane
     # payloads goes to it once, whatever the number of groups and shares
     spans: dict = {}
@@ -774,11 +856,11 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
         on_dev = {dev: (DR.bytes_on(pf.frame, lo, hi, dev,
                                     non_blocking=pinned), lo)
                   for dev, (lo, hi) in spans.items()}
-    # every share of every group is dispatched on its own device before
-    # the first is drained (the JAX package's one call over the mesh)
     dispatched = [_decode_dispatch_pl(items, rl, log2, pf, dev,
                                       on_dev.get(dev))
                   for items, rl, log2, dev in pl_calls]
+    for (items, rl, _, _), d in zip(fse_calls, fse_dispatched):
+        _decode_drain_fse(d, items, rl, pf, out, base)
     for (items, rl, _, _), d in zip(pl_calls, dispatched):
         _decode_drain_pl(d, items, rl, pf, out, base)
     with _stage("ect.decompress.output"):
@@ -911,46 +993,71 @@ def _decode_drain_pl(dispatched, items, raw_len, pf, out, out_base):
                 out[o + n_syms: o + raw_len] = finals[jj]
 
 
-def _decode_group(items, raw_len, log2, pf, out, out_base, dev):
-    """Decode shared-stream (MODE_FSE) blocks sharing one (raw_len, log2)
-    with ops.coder.decode_core (kernel D5 on CUDA), the tables built as
-    ``_encode_group_fse`` builds them."""
+def _decode_dispatch_fse(items, raw_len, log2, pf, dev):
+    """Queue the decode of shared-stream (MODE_FSE) blocks sharing one
+    (raw_len, log2) on ``dev``, waiting for nothing on the card. Every host
+    check of the share runs first: a payload with no marker bit, or one
+    whose marker lies more than 8 bits from its end, raises ValueError
+    before anything of the share is queued. Then the payload words
+    (zero-padded to the share's longest, and two guard words) and the
+    marker positions go to the card from pinned staging, the decode tables
+    are built as ``_encode_dispatch_fse`` builds them, ops.coder's
+    decode_core runs (kernel D5 on CUDA) and the d2h of its outputs is
+    queued. ``items`` are (block, payload, table, the payload's offset in
+    the frame). Returns what ``_decode_drain_fse`` takes."""
     k = min(pf.k, raw_len)
     B = len(items)
-    # payload words, padded to the group max (+ guard words)
-    max_bytes = max(len(p) for _, p, _, _ in items)
-    Wd = _cdiv(max_bytes, 4) + 2
-    words = np.zeros((B, Wd), np.uint32)
-    total_bits = np.zeros(B, np.int64)
-    norm_tables = np.zeros((B, 256), np.int32)
-    for j, (i, payload, nt, _) in enumerate(items):
-        buf = np.frombuffer(payload, np.uint8)
-        nz = np.flatnonzero(buf)
-        if nz.size == 0:
-            raise ValueError(f"block {i}: missing marker bit")
-        last = int(nz[-1])
-        marker = last * 8 + int(buf[last]).bit_length() - 1
-        if len(buf) * 8 - marker > 8:
-            raise ValueError(f"block {i}: framing error")
-        total_bits[j] = marker
-        pb = np.zeros(Wd * 4, np.uint8)
-        pb[: len(buf)] = buf
-        words[j] = pb.view(np.uint32)
-        norm_tables[j] = nt
-
-    packed = PL.tables_from_norm(norm_tables, log2, dev, half="decode").dec
+    with _stage("ect.decompress.fse_checks"):
+        max_bytes = max(len(p) for _, p, _, _ in items)
+        Wd = _cdiv(max_bytes, 4) + 2
+        words = np.zeros((B, Wd), np.uint32)
+        word_bytes = words.view(np.uint8)  # little-endian words, as the wire
+        total_bits = np.zeros(B, np.int64)
+        norm_tables = np.zeros((B, 256), np.int32)
+        for j, (i, payload, nt, _) in enumerate(items):
+            buf = np.frombuffer(payload, np.uint8)
+            nz = np.flatnonzero(buf)
+            if nz.size == 0:
+                raise ValueError(f"block {i}: missing marker bit")
+            last = int(nz[-1])
+            marker = last * 8 + int(buf[last]).bit_length() - 1
+            if len(buf) * 8 - marker > 8:
+                raise ValueError(f"block {i}: framing error")
+            total_bits[j] = marker
+            word_bytes[j, : len(buf)] = buf
+            norm_tables[j] = nt
+    with _stage("ect.decompress.fse_h2d"):
+        words = to_device(words, dev, non_blocking=True)
+        total_bits = to_device(total_bits, dev, non_blocking=True)
     m = raw_len - k
     R = max(_cdiv(m, k), 1) + 1
-    syms, emit_count, finals, done, _c = decode_core(
-        to_device(words, dev), torch.from_numpy(total_bits).to(dev), packed,
-        k=k, L=log2, R=R)
-    if not bool(done.all()):
+    with _stage("ect.decompress.fse_dispatch"):
+        packed = PL.tables_from_norm(norm_tables, log2, dev,
+                                     half="decode").dec
+        syms, emit_count, finals, done, _c = decode_core(
+            words, total_bits, packed, k=k, L=log2, R=R)
+        outs = [syms, emit_count, finals, done]
+        if dev.type != "cuda":  # the plain version has run
+            return outs, lambda: None
+        return PL._d2h(outs, PL._launched(dev), 0)
+
+
+def _decode_drain_fse(dispatched, items, raw_len, pf, out, out_base):
+    """Collect one share that ``_decode_dispatch_fse`` queued (a block
+    whose decode did not finish, or finished at another length, raises
+    ValueError) and write its blocks back into ``out``."""
+    outs, wait = dispatched
+    m = raw_len - min(pf.k, raw_len)
+    with _stage("ect.decompress.fse_collect"):
+        wait()
+        syms, emit_count, finals, done = map(to_numpy, outs)
+    if not done.all():
         raise ValueError("decode did not terminate: corrupt frame")
-    if not bool((emit_count == m).all()):
+    if not (emit_count == m).all():
         raise ValueError("decoded length mismatch: corrupt frame")
-    syms = syms.cpu().numpy().reshape(B, -1)
-    finals = finals.cpu().numpy()
-    for j, (i, _, _, _) in enumerate(items):
-        o = i * pf.block_size - out_base
-        out[o: o + m] = syms[j, :m]
-        out[o + m: o + raw_len] = finals[j]
+    with _stage("ect.decompress.fse_write_back"):
+        syms = syms.reshape(len(items), -1)
+        for j, (i, _, _, _) in enumerate(items):
+            o = i * pf.block_size - out_base
+            out[o: o + m] = syms[j, :m]
+            out[o + m: o + raw_len] = finals[j]

@@ -31,8 +31,15 @@ def graft_data():
             % 249).astype(np.uint8)
 
 
-# name -> (data, knobs): the cases of tests/test_parallel.py, then the
-# per-lane cases of __graft_entry__.py's multi-chip dry run
+def fse_two_group_data():
+    """12 blocks of 4096 bytes of three skews."""
+    return np.concatenate([gen_sequence(p, 4 * (1 << 12), seed=i)
+                           for i, p in enumerate((0.05, 0.3, 0.9))])
+
+
+# name -> (data, knobs): the cases of tests/test_parallel.py, the per-lane
+# cases of __graft_entry__.py's multi-chip dry run, then a shared-stream
+# frame of two table-log groups
 CASES = {
     "roundtrip": (lambda: gen_sequence(0.2, 1 << 16),
                   dict(block_size=1 << 12, k=32)),
@@ -45,6 +52,11 @@ CASES = {
     "graft_lanes": (graft_data, dict(block_size=2048, k=128, lanes=True)),
     "graft_bit_pack": (graft_data, dict(block_size=2048, k=128, lanes=True,
                                         bit_pack=True)),
+    # the shared-stream path (MODE_FSE) in two table-log groups (L = 9: 10
+    # blocks, L = 8: 2), each split over the mesh
+    "fse_two_groups": (fse_two_group_data,
+                       dict(block_size=1 << 12, k=64, lanes=False,
+                            table_log=("fast", 0.0025))),
 }
 
 
