@@ -14,13 +14,18 @@ their plain versions and the port's C++ host library, exactly
 (``tools.device_host``: both wire forms, k in {128, 1024, 8192, 16384},
 zero-size and one-byte lanes, sizes on a word boundary, guard bits; D3 in
 each half at L = 5..15 and every cluster size its wrapper can pick there,
-tables with -1 counts, 512 tables, equal rows). The main path's D3
+tables with -1 counts, 512 tables, equal rows), and the per-block
+histogram (D6 ``ect_histogram``) against its plain version where
+histograms break (a constant, uniform, bench and bf16 pattern; n in {1,
+15, 17, 4,097}; storage offsets 1..15; B = 0 and n = 0 give zeros without
+a launch). The main path's D3
 launches are checked exactly: one a table-log group a direction, 2 / 2 / 5
 a round trip at the throughput / parity / default points and 33 with the
 goldens; so are D4's and D5's (the shared-stream coder,
 ``ect_fse_encode`` / ``ect_fse_decode``: the default point's ragged tail
-and the golden ``frame_pl_crc``'s, 3 each), and no plain shared-stream
-core may run on a CUDA tensor. Phase ``routes``
+and the golden ``frame_pl_crc``'s, 3 each) and D6's (one a compress, none
+on a decompress: 11), and no plain shared-stream core or plain histogram
+(the ``bincount`` route) may run on a CUDA tensor. Phase ``routes``
 runs the throughput, parity and default points with the repack on the card
 and in C++ and with the tables built on the card and on the host, in turns,
 wall times side by side, every frame's bytes and each route's launch counts
@@ -38,7 +43,12 @@ in turns; D3 at one chunk's and one lane group's launch shapes and at L =
 15, each half on its own, beside the floor of an empty kernel launched the
 same way (``tools.device_host.TABLE_SHAPES``). A wrapper call of D1 and of
 D2 at each shape runs once under ``torch.profiler``: it must issue at most
-two kernels and no memset or fill. When ``build/parent`` holds a checkout
+two kernels and no memset or fill. D6 is timed at its launch shapes
+(``tools.device_host.HIST_SHAPES``: 8 x 16 MiB, 1,024 x 128 KiB, a share of
+8 virtual ranks at each, 256 x 4 MiB, one 4 KiB block), a wrapper call
+behind a spin, the kernel alone (one kernel, no fill), the ``bincount``
+route on the same tensor and the byte bound, the constant, uniform, bench
+and bf16 patterns side by side. When ``build/parent`` holds a checkout
 of an earlier commit (``git archive <commit> | tar -x -C build/parent``),
 D1-D3 of that commit are timed in turns with the current ones through
 what their wrappers did (``old_ms``), and B1 at each launch shape and B1
@@ -111,7 +121,8 @@ the default point under ``utils.trace`` (``torch.profiler``) and prints the
 device time it saw beside the wall time, the five device ops that took the
 most, and the host's wall time in each stage of ``frame.compress`` /
 ``decompress`` (their ``ect.*`` profiler ranges), on the container's route
-and with the C++ repack. Phase ``configs`` (after ``lane_entries``)
+and with the C++ repack; the throughput round trip must show D6 once and
+no point CUDA's ``bincount`` (``kernelHistogram1D``). Phase ``configs`` (after ``lane_entries``)
 runs the root scripts' measurements on the port
 (``tools.bench_configs``, ``tools.policy_sweep``) at the JAX sizes,
 nothing cut: configs 1-6 (config 4 on ``default_mesh()``, every card)
@@ -180,7 +191,10 @@ drives the multi-device path (``entropy_coders_tpu_torch.parallel``):
   each frame equals ``compress``'s, byte for byte, and round-trips; with
   ``shared_table=True`` the sharded histogram, the ring's all-reduce of
   the per-rank counts and ``np.bincount`` agree, and the header they
-  normalise to is the one the frame carries. With two cards or more,
+  normalise to is the one the frame carries. A compress on the eight
+  ranks launches D6 once a share, and nothing inside a share's
+  histogram waits for the card (the sync watch, with its ``.item()``
+  control). With two cards or more,
   ``default_mesh(1)`` against ``default_mesh()`` in turns at the
   throughput point and at 1 GiB in config 4's shape (BASELINE.md: shared
   table, 4 MiB blocks, k=8192, the default table-log policy), every frame
@@ -432,16 +446,20 @@ def phase_kernels():
 
 def phase_device_host():
     """D1-D3 against their plain versions on the card and against the
-    port's C++ host library, exactly (``tools.device_host``). Returns the
-    largest difference measured, of the repack and of the tables."""
+    port's C++ host library, exactly, and D6 against its plain version
+    where histograms break (``tools.device_host``). Returns the largest
+    difference measured, of the repack, of the tables and of the
+    histogram."""
     from entropy_coders_tpu_torch.tools import device_host as DH
 
     t0 = time.perf_counter()
     repack = DH.check_repack()
     tables = DH.check_tables()
-    emit("device_host", repack=repack, tables=tables,
+    histogram = DH.check_histogram()
+    emit("device_host", repack=repack, tables=tables, histogram=histogram,
          seconds=time.perf_counter() - t0)
-    return {"repack": repack["max_abs_err"], "tables": tables["max_abs_err"]}
+    return {"repack": repack["max_abs_err"], "tables": tables["max_abs_err"],
+            "histogram": histogram["max_abs_err"]}
 
 
 def phase_goldens(T, gg):
@@ -471,23 +489,27 @@ def phase_goldens(T, gg):
 
 
 def _launch_counts_all():
-    """The launch counts of B1, B2, D1-D3 and D4/D5 as they stand."""
+    """The launch counts of B1, B2, D1-D3, D4/D5 and D6 as they stand."""
     from entropy_coders_tpu_torch.ops import coder as C
+    from entropy_coders_tpu_torch.ops import histogram as H
     from entropy_coders_tpu_torch.ops import pl_coder as PL
 
     return {"decode": PL.DECODE_LAUNCHES, "encode": PL.ENCODE_LAUNCHES,
             **_device_host_counts(), "fse_encode": C.ENCODE_LAUNCHES,
-            "fse_decode": C.DECODE_LAUNCHES}
+            "fse_decode": C.DECODE_LAUNCHES, "histogram": H.HIST_LAUNCHES}
 
 
 @contextlib.contextmanager
 def plain_cores_on_cuda(counts: dict):
     """While open, every call of the shared-stream cores' plain versions
-    (``ops.coder.encode_core_ref``/``decode_core_ref``) on CUDA tensors
-    adds one to ``counts``: the wrappers must never take them there."""
+    (``ops.coder.encode_core_ref``/``decode_core_ref``) and of D6's
+    (``ops.histogram.histogram_blocks_ref``, the ``bincount`` route) on
+    CUDA tensors adds one to ``counts``: the wrappers must never take them
+    there."""
     from entropy_coders_tpu_torch.ops import coder as C
+    from entropy_coders_tpu_torch.ops import histogram as H
 
-    saved = C.encode_core_ref, C.decode_core_ref
+    saved = C.encode_core_ref, C.decode_core_ref, H.histogram_blocks_ref
 
     def counted(name, fn):
         def call(first, *args, **kwargs):
@@ -498,10 +520,11 @@ def plain_cores_on_cuda(counts: dict):
 
     C.encode_core_ref = counted("encode_core_ref", saved[0])
     C.decode_core_ref = counted("decode_core_ref", saved[1])
+    H.histogram_blocks_ref = counted("histogram_blocks_ref", saved[2])
     try:
         yield counts
     finally:
-        C.encode_core_ref, C.decode_core_ref = saved
+        C.encode_core_ref, C.decode_core_ref, H.histogram_blocks_ref = saved
 
 
 def roundtrip(T, data, **kw):
@@ -510,6 +533,8 @@ def roundtrip(T, data, **kw):
     kernel's launches of one compress + decompress."""
     import torch
 
+    from entropy_coders_tpu_torch.ops import histogram as H
+
     times = {}
     c0 = _launch_counts_all()
     for tag in ("cold", "warm"):
@@ -517,11 +542,13 @@ def roundtrip(T, data, **kw):
         t0 = time.perf_counter()
         frame = T.compress(data, device="cuda", **kw)
         times[f"compress_s_{tag}"] = time.perf_counter() - t0
+        h0 = H.HIST_LAUNCHES
         t0 = time.perf_counter()
         out = T.decompress(frame, device="cuda")
         torch.cuda.synchronize()
         times[f"decompress_s_{tag}"] = time.perf_counter() - t0
         check(out == data.tobytes(), f"round trip failed ({kw})")
+        check(H.HIST_LAUNCHES == h0, f"a decompress launched D6 ({kw})")
     times["launches"] = {k: (v - c0[k]) // 2
                          for k, v in _launch_counts_all().items()}
     return frame, times
@@ -538,6 +565,11 @@ D3_MAIN_PATH = 15 + 2 * sum(D3_LAUNCHES.values())
 # (the default point's tail); with the golden frame_pl_crc's tail, 3 each
 FSE_LAUNCHES = {"throughput": 0, "parity": 0, "default": 1}
 FSE_MAIN_PATH = 1 + 2 * sum(FSE_LAUNCHES.values())
+# D6 launches a round trip: one a compress of full blocks (one share
+# unsharded; a decompress launches none); with the five golden frames'
+# compresses (each has a full block), the main path's 11
+D6_LAUNCHES = {"throughput": 1, "parity": 1, "default": 1}
+D6_MAIN_PATH = 5 + 2 * sum(D6_LAUNCHES.values())
 
 
 def check_d3_launches(name, launches):
@@ -549,6 +581,9 @@ def check_d3_launches(name, launches):
         check(launches[kind] == FSE_LAUNCHES[name],
               f"{name}: {launches[kind]} {kind} (D4/D5) launches a round "
               f"trip, expected {FSE_LAUNCHES[name]}")
+    check(launches["histogram"] == D6_LAUNCHES[name],
+          f"{name}: {launches['histogram']} D6 launches a round trip, "
+          f"expected {D6_LAUNCHES[name]} (one a compress)")
 
 
 def phase_point(T, name, data, expect_bytes, **kw):
@@ -1150,6 +1185,15 @@ def phase_trace(T, points):
         kernel_us = sum(t for key, t, _ in ops if not key.startswith(copy))
         copy_us = sum(t for key, t, _ in ops if key.startswith(copy))
         top = sorted(ops, key=lambda o: -o[1])[:5]
+        # the histogram's kernels: D6 once (one compress of one share) and
+        # no CUDA bincount (kernelHistogram1D)
+        hist = {key[:80]: n for key, _, n in ops if "istogram" in key}
+        check(not any("Histogram1D" in key for key in hist),
+              f"trace ({name}): CUDA's bincount ran: {hist}")
+        check(name != "throughput"
+              or sum(n for key, n in hist.items()
+                     if "histogram_kernel" in key) == 1,
+              f"trace ({name}): D6 kernels seen {hist}, expected one")
         stages = {e.key: {"host_ms": e.cpu_time_total / 1e3, "calls": e.count}
                   for e in events if e.key.startswith("ect.")
                   and e.device_type == DeviceType.CPU}
@@ -1164,7 +1208,7 @@ def phase_trace(T, points):
             decompress_ms=(t3 - t2) * 1e3, profiler_start_s=start_s,
             device_kernel_ms=kernel_us / 1e3, device_copy_ms=copy_us / 1e3,
             device_busy_share=(kernel_us + copy_us) / 1e3 / (wall_s * 1e3),
-            device_time_visible=bool(ops),
+            device_time_visible=bool(ops), histogram_ops=hist,
             top5=[{"op": key[:120], "ms": t / 1e3, "calls": n}
                   for key, t, n in top],
             host_stages=dict(sorted(stages.items())))
@@ -1491,6 +1535,10 @@ def phase_timing(data):
     out["tables"] = DH.tables_shapes(data, old_kernels)
     for name, row in out["tables"].items():
         emit(f"timing_tables_{name}", **row)
+    # D6 at its launch shapes beside the bincount route, and the byte
+    # patterns side by side
+    out["histogram"] = DH.histogram_shapes(data)
+    emit("timing_histogram", **out["histogram"])
     return out
 
 
@@ -2517,7 +2565,9 @@ def sharded_shared_stream(T, P, data, virtual8) -> dict:
           "sharded MODE_FSE: 8 ranks' frame or round trip")
     expect = {"decode": 0, "encode": 0, "merge": 0, "split": 0,
               "tables": 2 * shares, "fse_encode": shares,
-              "fse_decode": shares}
+              "fse_decode": shares,
+              "histogram": len(TF._shares(len(data) // knobs["block_size"],
+                                          virtual8))}
     check(got == expect, f"sharded MODE_FSE: a round trip on 8 ranks "
           f"launched {got}, expected {expect}")
     check(not plain, f"sharded MODE_FSE: plain cores on CUDA: {plain}")
@@ -2567,6 +2617,44 @@ def sharded_shared_stream(T, P, data, virtual8) -> dict:
             "cards": cards}
 
 
+def d6_on_8_ranks(T, P, TF, data, virtual8, single_frame) -> dict:
+    """The throughput point compressed on 8 virtual ranks with a sync
+    watch (``syncs_in``) over ``frame.histogram_blocks``: one D6 launch a
+    share, and no operation inside a share's histogram that waits for the
+    card (the watch first sees the one in an ``.item()`` control); the
+    frame equals the unsharded one. Then the peak device memory of a
+    compress (``compress_peak``) unsharded and on the 8 ranks, beside the
+    parent commit's port's (its ``bincount`` route) when ``build/parent``
+    holds it."""
+    import torch
+
+    from entropy_coders_tpu_torch.ops import histogram as H
+
+    control, seen = types.SimpleNamespace(
+        item=lambda: torch.ones(1, device="cuda").item()), {}
+    with syncs_in(control, ("item",), seen):
+        control.item()
+    check(len(seen["item"]) == 1, f"the sync watch saw {seen} in .item()")
+    syncs, h0 = {}, H.HIST_LAUNCHES
+    with syncs_in(TF, ("histogram_blocks",), syncs):
+        frame = P.compress(data, virtual8, **THROUGHPUT)
+    launches = H.HIST_LAUNCHES - h0
+    shares = len(TF._shares(len(data) // BLOCK, virtual8))
+    check(frame == single_frame, "8 ranks: the frame differs")
+    check(launches == shares, f"8 ranks: {launches} D6 launches for "
+          f"{shares} shares")
+    check(not any(syncs.values()), f"8 ranks: a histogram waited for the "
+          f"card: {syncs}")
+    parent = parent_port()
+    ports = {"": (T, P)} | ({"parent_": parent} if parent else {})
+    peaks = {prefix + name: compress_peak(
+        lambda: _codec(*port, mesh)[0](data, **THROUGHPUT))
+        for prefix, port in ports.items()
+        for name, mesh in (("unsharded", None), ("virtual_8", virtual8))}
+    return {"shares": shares, "launches": launches, "syncs": syncs,
+            "compress_peak": peaks}
+
+
 def phase_sharded(T, data, single_frame):
     """The shared-stream (MODE_FSE) groups on a mesh first
     (``sharded_shared_stream``), then the throughput point through
@@ -2590,6 +2678,7 @@ def phase_sharded(T, data, single_frame):
     turns = mesh_turns(T, P, {"unsharded": None, "virtual_8": virtual8,
                               "default_mesh": P.default_mesh()},
                        data, THROUGHPUT, single_frame)
+    d6 = d6_on_8_ranks(T, P, TF, data, virtual8, single_frame)
     cards = {}
     if torch.cuda.device_count() >= 2:
         cards["throughput"] = mesh_cards(T, P, data, THROUGHPUT)
@@ -2625,7 +2714,8 @@ def phase_sharded(T, data, single_frame):
           "shared header != the normalised ring total")
     check(P.decompress(shared, virtual8) == data.tobytes(),
           "sharded shared-table round trip")
-    emit("sharded", meshes=turns, five_blocks_bytes=len(frame5),
+    emit("sharded", meshes=turns, histogram_8_ranks=d6,
+         five_blocks_bytes=len(frame5),
          shared_frame_bytes=len(shared), shared_compress_s=shared_s,
          shared_log2=s[1], cards=cards or
          "one card: one card against all needs >= 2")
@@ -3473,7 +3563,8 @@ def ss_point(T, data, name: str, lat: dict, mhz: float) -> dict:
     inp, groups = ss_launch_shape(data, frame, knobs)
     got = times["launches"]
     want = {"decode": 0, "encode": 0, "merge": 0, "split": 0,
-            "tables": 2 * groups, "fse_encode": groups, "fse_decode": groups}
+            "tables": 2 * groups, "fse_encode": groups, "fse_decode": groups,
+            "histogram": 1}
     check(got == want, f"{name}: a round trip launched {got}, expected "
           f"{want}")
     shape = ss_time_shape(inp, lat, mhz, SS_PLAIN_BLOCKS[name])
@@ -3537,6 +3628,7 @@ def run_single(T, PL, gg, data, card):
     and D3's timings (``device_host.TABLE_SHAPES``)."""
     from entropy_coders_tpu_torch.ops import coder as C
     from entropy_coders_tpu_torch.ops import device_repack as DR
+    from entropy_coders_tpu_torch.ops import histogram as H
     from entropy_coders_tpu_torch.ops import tables as TB
 
     worst = phase_kernels()
@@ -3551,6 +3643,7 @@ def run_single(T, PL, gg, data, card):
     TB.TABLE_LAUNCHES = 0
     C.ENCODE_LAUNCHES = 0
     C.DECODE_LAUNCHES = 0
+    H.HIST_LAUNCHES = 0
     plain_on_cuda = {}
     with plain_cores_on_cuda(plain_on_cuda):
         phase_goldens(T, gg)
@@ -3576,8 +3669,11 @@ def run_single(T, PL, gg, data, card):
     check(launches["fse_encode"] == launches["fse_decode"] == FSE_MAIN_PATH,
           f"{launches['fse_encode']} / {launches['fse_decode']} D4 / D5 "
           f"launches on the main path, expected {FSE_MAIN_PATH} each")
-    check(not plain_on_cuda, f"the main path ran the shared-stream plain "
-          f"versions on CUDA tensors: {plain_on_cuda}")
+    check(launches["histogram"] == D6_MAIN_PATH,
+          f"{launches['histogram']} D6 launches on the main path, expected "
+          f"{D6_MAIN_PATH}")
+    check(not plain_on_cuda, f"the main path ran the shared-stream or "
+          f"histogram plain versions on CUDA tensors: {plain_on_cuda}")
     emit("launches", **launches, plain_cores_on_cuda=0)
     phase_routes(T, PL, {"throughput": (data, tp_knobs, tp_frame),
                          "parity": (data, par_knobs, par_frame),
@@ -3776,6 +3872,35 @@ def _shared_stream_row(name, kind, replaces, launches, ss):
                       for k, r in ss["sweep"].items()}}
 
 
+def _histogram_row(src, launches, hist, checked):
+    """D6 in the kernels line: a wrapper call at the throughput launch
+    shape (8 blocks of 16 MiB, one compress's) beside the kernel alone,
+    the plain version (the offset ``bincount`` route on the same CUDA
+    tensor, also ``library_ms``: the one PyTorch call that computes the
+    same function) and the byte bound; every ``device_host.HIST_SHAPES``
+    shape beside it, the kernel alone on each byte pattern at the
+    throughput shape.
+    ``max_abs_err`` is the largest difference from the plain version over
+    phase ``device_host``'s cases (``checked``) and every shape."""
+    from entropy_coders_tpu_torch.tools import device_host as DH
+
+    keys = ("B", "n", "slices", "grid", "ms", "kernel_ms", "host_ms",
+            "plain_ms", "bound_ms", "share_of_bound")
+    shapes = {s: r for s, r in hist.items() if s in DH.HIST_SHAPES}
+    tp = shapes["throughput"]
+    return {"name": "histogram (D6)", "route": "cuda", "source": src,
+            "replaces": "entropy_coders_tpu/ops/histogram.py:36",
+            "launches": launches,
+            "max_abs_err": max([checked] + [r["max_abs_err"]
+                                            for r in shapes.values()]),
+            "ms": tp["ms"], "plain_ms": tp["plain_ms"],
+            "bound_ms": tp["bound_ms"], "bound_by": "bytes",
+            "library_ms": tp["library_ms"], "kernel_ms": tp["kernel_ms"],
+            "shapes": {s: {k: r[k] for k in keys}
+                       for s, r in shapes.items()},
+            "patterns_kernel_ms": hist["patterns"]}
+
+
 def print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,
                   ring_peer, par, layouts):
     """The line before the last: every kernel with its main-path launches,
@@ -3803,8 +3928,9 @@ def print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,
     profiler), the first design's call (``old_ms``, when ``build/parent``
     holds it) and the kernels a call issued. D3 is timed at a lane group's
     launch shape (``_tables_row``), D4 and D5 at the MODE_FSE default
-    point's (``_shared_stream_row``). No PyTorch call computes B1, B2, B4,
-    B5 or D1-D5."""
+    point's (``_shared_stream_row``), D6 at the throughput point's
+    (``_histogram_row``; its ``library_ms`` is the ``bincount`` route). No
+    PyTorch call computes B1, B2, B4, B5 or D1-D5."""
     lay_launches, lay_err, lay10, one10, turns = layouts
     shapes = timing["shapes"]
     src = "entropy_coders_tpu_torch/csrc"
@@ -3855,6 +3981,8 @@ def print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,
         _shared_stream_row("fse_decode (D5)", "decode",
                            "entropy_coders_tpu/ops/coder.py:166",
                            launches["fse_decode"], timing["shared_stream"]),
+        _histogram_row(f"{src}/histogram.cu", launches["histogram"],
+                       timing["histogram"], dh_err["histogram"]),
     ]}), flush=True)
 
 

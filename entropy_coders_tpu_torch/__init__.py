@@ -15,7 +15,7 @@ the reference it is held against.
 * ``ops``       — per-lane kernels' wrappers and plain versions, the lane
   repack and the table build on the device (``ops.device_repack``,
   ``ops.tables``), the shared-stream cores and payload codec, the
-  per-block histogram;
+  per-block histogram (``ops.histogram``, kernel D6);
 * ``parallel``  — block sharding over several devices, multi-process
   frames, the ring collective;
 * ``kernels``   — nvcc build + ctypes load of ``csrc/*.cu``; ``builddir``

@@ -6,7 +6,7 @@ block is coded independently (per-lane streams, MODE_FSE_PL; the
 shared-stream k-way interleave, MODE_FSE; or the RAW/RLE escapes).
 
 Pipeline per frame:
-  host split -> one h2d of the full blocks -> device histogram -> host
+  host split -> one h2d of the full blocks -> device histogram (D6) -> host
   normalize (``normalize``) + header write -> table build (``ops.tables``
   on the card, or ``native`` on the host: ``host_tables``) -> per-lane
   encode kernel (B2) -> lane merge (``ops.device_repack`` on a CUDA device:
@@ -36,7 +36,7 @@ its sections land in block order. No share is padded. As the JAX package's
 one SPMD call over the mesh runs every chip at once, every share's work is
 queued on its own device before the host drains any: the h2d of the blocks
 (from pinned staging when the mesh spans several cards), the histograms
-(CUDA's ``bincount`` waits for its own card's copy), a lane group's chunks,
+(D6, behind its card's copy, and their d2h), a lane group's chunks,
 and a shared-stream (MODE_FSE) group's symbols, tables, encode or decode
 and the d2h of its outputs. Compress takes a table-log group at a time,
 every share of it dispatched before the first is drained; decompress
@@ -265,9 +265,9 @@ def compress(
             placed = [(lo, to_device(blocks[lo:hi], d, non_blocking=pinned))
                       for d, lo, hi in _shares(full, mesh)]
         with _stage("ect.compress.histogram"):
-            # every share's counts are queued before the first is waited
-            # for (CUDA's bincount itself waits for its card's h2d: it reads
-            # its input's min and max on the host)
+            # every share's D6 and the d2h of its counts are queued behind
+            # that share's h2d before the first is waited for: nothing here
+            # waits for a card until the last share's work is queued
             pending = [_host_later(histogram_blocks(t)) for _, t in placed]
             counts = np.concatenate([get() for get in pending])
         # single-symbol blocks can't be FSE-coded (the reference's

@@ -95,6 +95,10 @@ _SIGNATURES = {
     # lanes, threads, shared memory, registers, spills, CTAs an SM, ring,
     # sub-round, blocks a CTA (fse_coder.cu)
     "ect_fse_launch_info": [_I, _I, _I, _I, _I, _I, _P],
+    # data, n, B, slice, S, grid, threads, out, stream (histogram.cu, D6)
+    "ect_histogram": [_P, _LL, _I, _I, _I, _I, _I, _P, _P],
+    # dev, threads -> CTAs resident on device dev at once (or -error)
+    "ect_histogram_max_ctas": [_I, _I],
 }
 
 _lib = None

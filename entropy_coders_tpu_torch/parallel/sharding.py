@@ -80,11 +80,13 @@ def decompress(frame: bytes, mesh=None, **kwargs):
 
 def sharded_histogram(blocks, mesh) -> torch.Tensor:
     """Byte histogram of ``blocks`` (B, n) uint8, blocks split over
-    ``mesh``: per-block counts on each rank's device, every share queued
-    before any is summed, then one exact sum on ``mesh[0]`` (the
-    counterpart of the JAX function's XLA all-reduce; plain torch, not the
-    ring). Returns (256,) int64 counts on ``mesh[0]``: exact where the JAX
-    function's uint32 sum wraps at 4 GiB."""
+    ``mesh``: per-block counts on each rank's device, one D6 launch a share
+    (``ops.histogram.histogram_blocks``, the plain version on the CPU),
+    every share queued before any is summed, then one exact sum on
+    ``mesh[0]`` (the counterpart of the JAX function's XLA all-reduce;
+    plain torch, not the ring). Returns (256,) int64 counts on
+    ``mesh[0]``: exact where the JAX function's uint32 sum wraps at 4
+    GiB."""
     mesh = F._mesh_devices(mesh)
     blocks = np.asarray(blocks, np.uint8)
     pinned = F._spans_cards(mesh)

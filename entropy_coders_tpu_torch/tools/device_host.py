@@ -1,11 +1,14 @@
-"""D1-D3 on the card: the lane repack (``ops.device_repack``, kernels
-``ect_lane_merge``/``ect_lane_split``) and the table build (``ops.tables``,
-``ect_build_tables``) held against their plain PyTorch versions and against
-the port's C++ host library, exactly, and timed at the main path's launch
-shapes (``tools.lane_shapes.SHAPES``) beside their bounds and the C++ calls.
+"""D1-D3 and D6 on the card: the lane repack (``ops.device_repack``,
+kernels ``ect_lane_merge``/``ect_lane_split``) and the table build
+(``ops.tables``, ``ect_build_tables``) held against their plain PyTorch
+versions and against the port's C++ host library, exactly, and timed at the
+main path's launch shapes (``tools.lane_shapes.SHAPES``) beside their bounds
+and the C++ calls; the per-block histogram (``ops.histogram``,
+``ect_histogram``) against its plain version and timed at its launch shapes
+(``HIST_SHAPES``) beside its bound and the ``bincount`` route.
 
     python -m entropy_coders_tpu_torch.tools.device_host [--old DIR]
-        [--rounds N]
+        [--rounds N] [--histogram]
 
 prints one JSON line per check and per launch shape. ``chip_smoke.py``
 drives the same functions in its phase ``device_host``. At each shape a
@@ -33,13 +36,24 @@ into another (``load_parent``): D3 is timed against the parent's call in
 turns the same way, and ``chip_smoke.py`` times B1 and the layouts against
 it.
 
+D6 (``--histogram`` runs it alone) is checked where histograms break
+(``check_histogram``: a constant, a uniform, the bench and a bf16 pattern;
+n in {1, 15, 17, 4,097}; storage offsets 1..15; B = 0 and n = 0 give zeros
+without a launch) and timed at every ``HIST_SHAPES`` shape: a wrapper call
+(CUDA events over 20 queued calls behind a spin), the kernel alone (the
+profiler's device time of one call: one kernel, no memset or fill), the
+plain version on the same tensor (the offset ``bincount`` route, which is
+also its ``library_ms``) in turns, and the byte bound; then the kernel alone
+on each pattern at the throughput shape.
+
 A bound is the bytes the function must move over 3.35 TB/s (an H100 SXM's
 published peak): each input read once, each output written once, counted
 from this run's sizes. Merge: the payload read from the words and written
 to the wire, plus 4 bytes of size a lane. Split: the payload read, 4 bytes
 of size a lane and 8 of offset a block, every word row written. Tables: 1
 KiB of counts read a block, and the half's arrays written: 4 bytes a slot
-(decode), or 2 bytes a slot and 2 KiB of transforms (encode).
+(decode), or 2 bytes a slot and 2 KiB of transforms (encode). Histogram:
+the blocks read and 2 KiB of counts a block written.
 """
 
 from __future__ import annotations
@@ -62,6 +76,7 @@ from ..normalize import normalize_batch
 from ..ops import device_repack as DR
 from ..ops import pl_coder as PL
 from ..ops import tables as TB
+from ..ops import histogram as H
 from ..ops.histogram import histogram_blocks
 from ..ops.unsigned import to_device, to_numpy
 from . import lane_shapes as LS
@@ -712,6 +727,150 @@ def tables_sweep(data: np.ndarray, device="cuda") -> dict:
     return out
 
 
+# --- D6, the per-block histogram -------------------------------------------------
+
+# D6's launch shapes on the main path, (B, block bytes): a share of the
+# throughput and parity points (their 8 blocks of 16 MiB, one share
+# unsharded), the default and shared-stream points' 1,024 blocks of 128
+# KiB, one share of 8 virtual ranks at each, config 4's 1 GiB of 4 MiB blocks
+# on one card, and graft's one 4,096-byte block
+HIST_SHAPES = {"throughput": (8, 16 << 20), "default": (1024, 128 << 10),
+               "share_8_ranks": (1, 16 << 20),
+               "share_8_ranks_default": (128, 128 << 10),
+               "config4": (256, 4 << 20), "graft": (1, 4096)}
+# the byte patterns timed side by side at the throughput shape: one value a
+# block (every lane of a warp on one bin), uniform bytes, the bench data
+# (byte 0 ~20%), the bytes of bf16 normals (the exponents on a few bins)
+HIST_PATTERNS = ("constant", "uniform", "bench", "bf16")
+HOLD_CYCLES = 20_000_000  # the spin each timed run waits behind (~10 ms)
+
+
+def _diff_counts(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest difference by value between two count tensors."""
+    require(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    return int((a - b).abs().max()) if a.numel() else 0
+
+
+def hist_pattern(kind: str, B: int, n: int, device="cuda",
+                 seed: int = 0xD6) -> torch.Tensor:
+    """(B, n) uint8 rows of one of ``HIST_PATTERNS`` on ``device``, made
+    from ``seed`` (the bench data: ``gen_sequence(0.2)`` cycled)."""
+    from .bench_data import gen_sequence
+
+    if kind == "bench":
+        return torch.from_numpy(np.resize(gen_sequence(0.2, min(
+            B * n, 128 << 20)), B * n).reshape(B, n)).to(device)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if kind == "constant":
+        vals = torch.randint(0, 256, (B, 1), generator=g, dtype=torch.uint8)
+        return vals.to(device).expand(B, n).contiguous()
+    if kind == "uniform":
+        return torch.randint(0, 256, (B, n), generator=g,
+                             dtype=torch.uint8).to(device)
+    if kind == "bf16":
+        x = torch.randn(B * n // 2 + 1, generator=g).to(torch.bfloat16)
+        return x.view(torch.uint8)[: B * n].reshape(B, n).to(device)
+    raise ValueError(f"unknown pattern {kind}")
+
+
+def check_histogram(device="cuda") -> dict:
+    """D6 against its plain version on the same tensors of ``device``,
+    exactly, where histograms break: each ``HIST_PATTERNS`` pattern at
+    (4, 1 MiB); n in {1, 15, 17, 4,097} at B in {1, 3, 9}; the first row of
+    a view at every storage offset 1..15; B = 0 and n = 0 (zeros, no
+    launch). Each other case launches D6 exactly once."""
+    cases = [(f"{kind}_4x1MiB", hist_pattern(kind, 4, 1 << 20, device))
+             for kind in HIST_PATTERNS]
+    cases += [(f"uniform_{B}x{n}", hist_pattern("uniform", B, n, device,
+                                                seed=B * n))
+              for n in (1, 15, 17, 4097) for B in (1, 3, 9)]
+    flat = hist_pattern("uniform", 1, 3 * 4097 + 16, device)[0]
+    cases += [(f"offset_{off}", flat[off: off + 3 * 4097].view(3, 4097))
+              for off in range(1, 16)]
+    held = Held()
+    for name, t in cases:
+        before = H.HIST_LAUNCHES
+        got = H.histogram_call(t)
+        require(H.HIST_LAUNCHES == before + 1,
+                f"{name}: {H.HIST_LAUNCHES - before} D6 launches")
+        held(_diff_counts(got, H.histogram_blocks_ref(t)),
+             f"{name}: D6 != plain version")
+        require(int(got.sum()) == t.numel(), f"{name}: counts lost")
+    for shape in ((0, 16), (3, 0)):
+        before = H.HIST_LAUNCHES
+        got = H.histogram_call(torch.empty(shape, dtype=torch.uint8,
+                                           device=device))
+        require(H.HIST_LAUNCHES == before and got.shape == (shape[0], 256)
+                and not bool(got.any()), f"{shape}: not zeros without a "
+                "launch")
+    return {"cases": len(cases) + 2, "max_abs_err": held.worst}
+
+
+def histogram_row(name: str, blocks: torch.Tensor, rounds: int = 2) -> dict:
+    """D6 at one launch shape: equal to its plain version on the same
+    tensor; a wrapper call (CUDA events over queued calls behind a spin),
+    the kernel alone (the profiler's device time of one call: one kernel,
+    no memset or fill), the plain version (the offset ``bincount`` route,
+    the one PyTorch call that computes the same function: ``library_ms``),
+    in turns, and the byte bound: the blocks read once, the counts written
+    once."""
+    B, n = blocks.shape
+    got = H.histogram_call(blocks)
+    err = _diff_counts(got, H.histogram_blocks_ref(blocks))
+    require(err == 0, f"{name}: D6 != plain version: {err}")
+    S, slice_, grid = H.launch_config(B, n, H._CTAS[blocks.device.index])
+
+    def call():
+        H.histogram_call(blocks)
+
+    def plain():
+        H.histogram_blocks_ref(blocks)
+
+    reps = 20 if B * n < 1 << 28 else 4
+    ms, plain_ms = [], []
+    for _ in range(rounds):  # kernel, plain, plain, kernel
+        ms.append(cuda_ms(call, runs=5, reps=reps,
+                          hold_cycles=HOLD_CYCLES)[0])
+        plain_ms.append(cuda_ms(plain, runs=3, warmup=1)[0])
+    ops = device_ops(call)
+    row = {"B": B, "n": n, "slices": S, "slice": slice_, "grid": grid,
+           "threads": H.THREADS, "max_abs_err": err, "ms": min(ms),
+           "ms_turns": ms, "host_ms": host_ms(call),
+           "device_ops": check_ops(ops, f"{name} histogram")}
+    require(row["device_ops"]["kernels"] == 1,
+            f"{name}: D6 issued {row['device_ops']['kernels']} kernels a call")
+    row["kernel_ms"] = kernel_ms(ops)
+    row["plain_ms"] = min(plain_ms)
+    row["plain_ms_turns"] = plain_ms
+    row["library_ms"] = row["plain_ms"]
+    row.update(_bound(B * n + B * 256 * 8))
+    row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+    return row
+
+
+def histogram_shapes(data: np.ndarray, device="cuda") -> dict:
+    """``histogram_row`` at every ``HIST_SHAPES`` shape on ``data`` (cycled
+    where it is shorter), then the kernel alone at the throughput shape on
+    each of ``HIST_PATTERNS`` side by side."""
+    out = {}
+    for name, (B, n) in HIST_SHAPES.items():
+        blocks = torch.from_numpy(np.resize(data, B * n).reshape(B, n)).to(
+            device)
+        out[name] = histogram_row(name, blocks)
+        del blocks
+    B, n = HIST_SHAPES["throughput"]
+    out["patterns"] = {}
+    for kind in HIST_PATTERNS:
+        blocks = hist_pattern(kind, B, n, device)
+        require(_diff_counts(H.histogram_call(blocks),
+                             H.histogram_blocks_ref(blocks)) == 0,
+                f"{kind}: D6 != plain version")
+        out["patterns"][kind] = kernel_ms(device_ops(
+            lambda: H.histogram_call(blocks)))
+        del blocks
+    return out
+
+
 # --- another commit's D3, B1 and layout kernels ------------------------------
 
 
@@ -852,10 +1011,18 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--sweep", action="store_true",
                     help="D3 at every cluster and CTA size, then stop")
+    ap.add_argument("--histogram", action="store_true",
+                    help="D6's checks and launch shapes, then stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("device_host checks and times kernels on a CUDA "
                            "device; none here")
+    if args.histogram:
+        print(json.dumps({"check": "histogram", **check_histogram()}),
+              flush=True)
+        for name, row in histogram_shapes(gen_sequence(0.2, 128 << 20)).items():
+            print(json.dumps({"shape": name, "histogram": row}), flush=True)
+        return 0
     if args.sweep:
         for name, row in tables_sweep(gen_sequence(0.2, 128 << 20)).items():
             print(json.dumps({"sweep": name, **row}), flush=True)

@@ -15,9 +15,13 @@
 // tests/test_torch_ring_emulated.py (ring_main.cpp),
 // tests/test_torch_tables_emulated.py (tables_main.cpp),
 // tests/test_torch_lane_decode_emulated.py (lane_decode_main.cpp) and
-// tests/test_torch_coder_emulated.py (fse_coder_main.cpp). atomicOr and
-// atomicMin are std::atomic_ref operations, __syncthreads_or a vote
-// between barriers.
+// tests/test_torch_coder_emulated.py (fse_coder_main.cpp) and
+// tests/test_torch_histogram_emulated.py (histogram_main.cpp). atomicOr,
+// atomicMin and atomicAdd (shared or global, 32 or 64 bit) are
+// std::atomic_ref operations, __syncthreads_or a vote between barriers. A
+// cooperative launch's grid is a set of blocks run at once:
+// cooperative_groups::this_grid().sync() is a barrier over all their
+// threads (`emu_grid_bar`, which the launcher sets).
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -151,6 +155,13 @@ inline unsigned long long atomicMin(unsigned long long* p,
   }
   return cur;
 }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __clz(int v) { return v ? __builtin_clz((unsigned)v) : 32; }
 inline int __ffs(int v) { return __builtin_ffs(v); }
@@ -161,7 +172,15 @@ struct EmuCluster {
 };
 extern thread_local EmuCluster* emu_cluster;
 extern thread_local unsigned emu_cluster_rank;
+extern std::barrier<>* emu_grid_bar;  // every thread of a cooperative grid
 namespace cooperative_groups {
+struct grid_group {
+  void sync() const {
+    std::atomic_thread_fence(std::memory_order_seq_cst);
+    emu_grid_bar->arrive_and_wait();
+  }
+};
+inline grid_group this_grid() { return {}; }
 struct cluster_group {
   void sync() const { emu_cluster->bar->arrive_and_wait(); }
   unsigned block_rank() const { return emu_cluster_rank; }

@@ -351,3 +351,39 @@ def test_fse_stages_are_named(monkeypatch):
     assert P.decompress(frame, mesh) == data.tobytes()
     for part in ("checks", "h2d", "dispatch", "collect", "write_back"):
         assert entered.count(f"ect.decompress.fse_{part}") == 3
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_histograms_dispatched_before_any_collect(monkeypatch, jax_frame, n):
+    """Compress queues every share's histogram (D6 on a CUDA device) and
+    the d2h of its counts before it waits for the first: "hist" as each
+    share's ``histogram_blocks`` returns, "hist_collect" as its counts are
+    read. One histogram a share, each of the share's own rows."""
+    data, jframe = jax_frame
+    log, shares, hists = [], [], set()
+    real_hist, real_later = F.histogram_blocks, F._host_later
+
+    def histogram_blocks(t, *a, **kw):
+        out = real_hist(t, *a, **kw)
+        shares.append(t.shape[0])
+        hists.add(id(out))
+        log.append("hist")
+        return out
+
+    def host_later(t, *a, **kw):
+        get = real_later(t, *a, **kw)
+        if id(t) not in hists:
+            return get
+
+        def collect():
+            log.append("hist_collect")
+            return get()
+        return collect
+
+    monkeypatch.setattr(F, "histogram_blocks", histogram_blocks)
+    monkeypatch.setattr(F, "_host_later", host_later)
+    mesh = (torch.device("cpu"),) * n
+    assert P.compress(data, mesh, **KW) == jframe
+    full = len(data) // BS
+    assert shares == [hi - lo for _, lo, hi in F._shares(full, mesh)]
+    assert log == ["hist"] * len(shares) + ["hist_collect"] * len(shares)

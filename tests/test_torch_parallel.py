@@ -133,6 +133,24 @@ def test_sharded_histogram_uneven():
                                                            minlength=256))
 
 
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_sharded_histogram_equals_bincount(n):
+    """Uneven shares of 4,097-byte rows (unaligned row starts), n CPU
+    ranks: the int64 sum equals ``np.bincount`` of all the bytes, and the
+    CPU ranks launch no kernel."""
+    from entropy_coders_tpu_torch.ops import histogram as H
+
+    rng = np.random.default_rng(n)
+    blocks = np.minimum(rng.geometric(0.1, (11, 4097)) - 1, 255).astype(
+        np.uint8)
+    before = H.HIST_LAUNCHES
+    got = P.sharded_histogram(blocks, (CPU,) * n)
+    assert got.dtype == torch.int64 and got.device == CPU
+    np.testing.assert_array_equal(got.numpy(), np.bincount(
+        blocks.reshape(-1), minlength=256))
+    assert H.HIST_LAUNCHES == before
+
+
 def test_device_contradicting_mesh_raises():
     data = gen_sequence(0.2, 2 * 4096, seed=7)
     with pytest.raises(ValueError, match="contradicts"):
