@@ -684,10 +684,10 @@ def phase_routes(T, PL, points, rounds: int = 3):
     copied, forced): device, cpp_repack, host_tables, then the reverse,
     ``rounds`` times. Host-clock wall times, each run ending synchronised, and the
     host's time in each stage of ``frame.compress``/``decompress`` (their
-    ``ect.*`` ranges, clocked here; ``ect.tables`` lies inside the dispatch
-    stages); every frame equal to the expected one and every round trip
-    exact; a route's launch counts must show its kernels and none of the
-    others'."""
+    ``ect.*`` ranges, clocked here; ``ect.compress.tables`` and
+    ``ect.decompress.tables`` lie inside the dispatch stages); every frame
+    equal to the expected one and every round trip exact; a route's launch
+    counts must show its kernels and none of the others'."""
     import torch
 
     from entropy_coders_tpu_torch import frame as TF
@@ -1145,8 +1145,8 @@ def phase_trace(T, points):
     ``torch.profiler`` saw (kernels and copies) against the wall time, the
     five device ops that took the most, and the host's wall time in each
     stage of ``frame.compress``/``decompress`` (the ``ect.*`` ranges;
-    ``ect.tables`` lies inside the dispatch stages). The traces go to
-    ``build/trace/``."""
+    ``ect.compress.tables`` and ``ect.decompress.tables`` lie inside the
+    dispatch stages). The traces go to ``build/trace/``."""
     import torch
 
     from entropy_coders_tpu_torch import utils
@@ -1945,7 +1945,8 @@ def rank_counts(blocks_dev, n):
     from entropy_coders_tpu_torch.ops.histogram import histogram_blocks
 
     out = np.zeros((n, 256), np.int64)
-    for i, (_, lo, hi) in enumerate(_shares(blocks_dev.shape[0], (None,) * n)):
+    for i, (_, _, lo, hi) in enumerate(_shares(blocks_dev.shape[0],
+                                               (None,) * n)):
         out[i] = histogram_blocks(blocks_dev[lo:hi]).sum(0).cpu().numpy()
     return out
 

@@ -13,9 +13,14 @@ Pipeline per frame:
   only the payload bytes come back; the C++ merge for the CPU) -> frame
   assembly. Decode mirrors it: the span of the frame that holds the
   per-lane payloads goes to the card once, the lane split (D2) and the
-  per-lane decode kernel (B1) run there. The stages are named
-  ``torch.profiler`` ranges (``ect.compress.*``, ``ect.decompress.*``), so a
-  trace splits the host's time by stage.
+  per-lane decode kernel (B1) run there. Each public call is one
+  ``torch.profiler`` range (``ect.compress``, ``ect.decompress``) from its
+  first line until its locals are released; its stages are named ranges
+  inside it (``ect.compress.*``, ``ect.decompress.*``; on a mesh each
+  share's dispatch and drain, ``ect.<op>.share_dispatch.<rank>`` and
+  ``.share_drain.<rank>``), so a trace splits the host's time by stage.
+  The calls count themselves and the bytes of the fresh host buffers they
+  make (``utils.profiling.counters``).
 
 ``device`` selects where the block work runs. It defaults to ``"cuda"`` and
 raises when CUDA is unavailable; ``device="cpu"`` runs the kernels' plain
@@ -49,6 +54,7 @@ after it. The unsharded call is the one-share case of the same code.
 
 from __future__ import annotations
 
+import functools
 import struct
 import zlib
 from dataclasses import dataclass
@@ -65,6 +71,7 @@ from .ops import pl_coder as PL
 from .ops.coder import blocks_to_syms, decode_core, encode_core, encode_layout
 from .ops.histogram import histogram_blocks
 from .ops.unsigned import resolve_device, to_device, to_numpy
+from .utils.profiling import count as _count
 
 MAGIC = b"FSET"
 VERSION = 2
@@ -157,13 +164,33 @@ def _host_later(t: torch.Tensor, after=None, role: int = 0):
     return get
 
 
-def _shares(n_rows: int, mesh) -> list[tuple[torch.device, int, int]]:
-    """Contiguous balanced row ranges, one per mesh entry, as (device, lo,
-    hi); empty ones are left out (5 rows over 8 devices give 5 shares)."""
+def _shares(n_rows: int, mesh) -> list[tuple[int, torch.device, int, int]]:
+    """Contiguous balanced row ranges, one per mesh entry, as (rank,
+    device, lo, hi), the rank the entry's index in ``mesh``; empty ones are
+    left out (5 rows over 8 devices give 5 shares)."""
     p = len(mesh)
     bounds = [i * n_rows // p for i in range(p + 1)]
-    return [(d, bounds[i], bounds[i + 1]) for i, d in enumerate(mesh)
+    return [(i, d, bounds[i], bounds[i + 1]) for i, d in enumerate(mesh)
             if bounds[i + 1] > bounds[i]]
+
+
+def _share(op: str, part: str, rank: int):
+    """The range of one mesh share's dispatch or drain (``part``):
+    ``ect.<op>.share_<part>.<rank>``."""
+    return _stage(f"ect.{op}.share_{part}.{rank}")
+
+
+def _call_range(op: str):
+    """Decorate a public entry: its whole call is the range ``ect.<op>``,
+    which holds every ``ect.<op>.*`` stage and the release of the call's
+    locals."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with _stage(f"ect.{op}"):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 # --- compress ----------------------------------------------------------------
@@ -202,6 +229,7 @@ def resolve_shared_table(counts_all, total_len: int, table_log, lanes: bool):
     return tables[0], int(log2s[0])
 
 
+@_call_range("compress")
 def compress(
     data,
     *,
@@ -232,15 +260,18 @@ def compress(
     (default ``"cuda"``, which raises when CUDA is unavailable).
     ``sharding`` spreads the block work over ``sharding.mesh`` (module
     docstring); the ragged tail block runs on the mesh's first device."""
+    _count("calls.compress")
     mesh = _mesh(device, sharding)
     if lanes is None:
         lanes = mesh[0].type == "cuda"
     if table_log is None:
         table_log = PL_TABLE_LOG if lanes else TABLE_LOG_DEFAULT
     with _stage("ect.compress.input"):
-        data = (np.frombuffer(bytearray(data), np.uint8)
-                if not isinstance(data, np.ndarray)
-                else np.asarray(data, np.uint8))
+        if isinstance(data, np.ndarray):
+            data = np.asarray(data, np.uint8)
+        else:
+            data = np.frombuffer(bytearray(data), np.uint8)
+            _count("host_bytes.compress.input", data.nbytes)
     if block_size < 16:
         raise ValueError("block_size must be >= 16")
     if k < 1 or k > min(block_size, 0xFFFF):
@@ -255,21 +286,31 @@ def compress(
     sections: list[bytes] = [b""] * n_blocks
     modes = np.full(n_blocks, MODE_FSE, np.int32)
 
-    nsym = None
+    nsym = blocks = None
+    placed = []
     if full:
         blocks = data[: full * block_size].reshape(full, block_size)
+        shares = _shares(full, mesh)
         # one h2d per share of the mesh (one share without a sharding): the
         # device copies feed both the histogram and the lane encode kernel
         with _stage("ect.compress.h2d"):
             pinned = _spans_cards(mesh)
-            placed = [(lo, to_device(blocks[lo:hi], d, non_blocking=pinned))
-                      for d, lo, hi in _shares(full, mesh)]
+            for rank, d, lo, hi in shares:
+                with _share("compress", "dispatch", rank):
+                    placed.append((lo, to_device(blocks[lo:hi], d,
+                                                 non_blocking=pinned)))
         with _stage("ect.compress.histogram"):
             # every share's D6 and the d2h of its counts are queued behind
             # that share's h2d before the first is waited for: nothing here
             # waits for a card until the last share's work is queued
-            pending = [_host_later(histogram_blocks(t)) for _, t in placed]
-            counts = np.concatenate([get() for get in pending])
+            pending, got = [], []
+            for (rank, *_), (_, t) in zip(shares, placed):
+                with _share("compress", "dispatch", rank):
+                    pending.append(_host_later(histogram_blocks(t)))
+            for (rank, *_), get in zip(shares, pending):
+                with _share("compress", "drain", rank):
+                    got.append(get())
+            counts = np.concatenate(got)
         # single-symbol blocks can't be FSE-coded (the reference's
         # normalization rejects table_len == 1); they take the RLE escape
         nsym = (counts != 0).sum(axis=1)
@@ -311,10 +352,11 @@ def compress(
                           placed=placed, bit_pack=bit_pack)
 
     if full * block_size < total_len:  # ragged tail block
-        tail = data[full * block_size:]
-        _encode_tail(tail, k, table_log, shared_table, s_shared, sections,
-                     modes, n_blocks - 1, mesh[0], lanes=lanes,
-                     bit_pack=bit_pack)
+        with _stage("ect.compress.tail"):
+            _encode_tail(data[full * block_size:], k, table_log,
+                         shared_table, s_shared, sections, modes,
+                         n_blocks - 1, mesh[0], lanes=lanes,
+                         bit_pack=bit_pack)
 
     with _stage("ect.compress.frame"):
         # RAW/RLE escapes where FSE did not win. Constant-block detection for
@@ -327,6 +369,7 @@ def compress(
             if modes[i] in (MODE_FSE, MODE_FSE_PL) and len(sections[i]) >= rl:
                 modes[i] = MODE_RAW
                 sections[i] = data[o: o + rl].tobytes()
+                _count("host_bytes.compress.escapes", rl)
             if nsym is not None and i < len(nsym):
                 is_const = bool(nsym[i] == 1)
             else:
@@ -334,6 +377,7 @@ def compress(
             if modes[i] != MODE_RLE and rl > 1 and is_const:
                 modes[i] = MODE_RLE
                 sections[i] = bytes([int(data[o])])
+                _count("host_bytes.compress.escapes", 1)
 
         parts = [_frame_header(total_len, k, block_size, n_blocks,
                                shared_table, checksum, bit_pack)]
@@ -348,7 +392,12 @@ def compress(
                  & 0xFFFFFFFF for i in range(n_blocks)], np.uint32)
             parts.append(crcs.astype("<u4").tobytes())
         parts.extend(sections)
-        return b"".join(parts)
+        out = b"".join(parts)
+        _count("host_bytes.compress.frame", len(out))
+    with _stage("ect.compress.release"):
+        # the call's host buffers go inside its range, not after it
+        del data, blocks, placed, sections, parts
+    return out
 
 
 def _tl(table) -> int:
@@ -468,6 +517,11 @@ def _encode_drain_pl(dispatched, norm_tables, l2, shared_table, sections,
             words, szs = got
             with _stage("ect.compress.merge_cpp"):
                 payloads = PL.lane_merge_batch(words, szs, pack_bits=bit_pack)
+                # the C++ merge writes the group into one buffer (8 bytes
+                # of slack a block bit-packed), then copies out each block's
+                _count("host_bytes.compress.merge",
+                       2 * sum(len(p) for p in payloads)
+                       + (8 * len(payloads) if bit_pack else 0))
         with _stage("ect.compress.assemble"):
             for jj, payload in enumerate(payloads):
                 j = j0 + jj
@@ -478,6 +532,8 @@ def _encode_drain_pl(dispatched, norm_tables, l2, shared_table, sections,
                 if not shared_table:
                     parts.insert(0, _write_header(norm_tables[j], int(l2)))
                 sections[block_ids[j]] = b"".join(parts)
+                _count("host_bytes.compress.sections",
+                       len(sections[block_ids[j]]))
                 modes[block_ids[j]] = MODE_FSE_PL
 
 
@@ -491,7 +547,9 @@ def _rows_on(dev, ids, blocks, placed):
                 return t[ids[0] - lo: ids[-1] - lo + 1]
             # a blocking copy would wait for the shares queued on ``dev``
             return t[to_device(ids - lo, dev, non_blocking=True)]
-    return torch.from_numpy(np.ascontiguousarray(blocks[ids])).to(dev)
+    rows = blocks[ids]
+    _count("host_bytes.compress.gather", rows.nbytes)
+    return torch.from_numpy(rows).to(dev)
 
 
 def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
@@ -511,34 +569,39 @@ def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
 
     for l2 in np.unique(log2_arr):
         rows = np.flatnonzero(log2_arr == l2)
-        shares = [(dev, rows[lo:hi]) for dev, lo, hi in
+        shares = [(rank, dev, rows[lo:hi]) for rank, dev, lo, hi in
                   _shares(len(rows), mesh)]
+        dispatched = []
         if lanes and _pl_eligible(n, k, int(l2)):
-            dispatched = [
-                _encode_dispatch_pl(
-                    _rows_on(dev, block_ids[r], blocks, placed),
-                    norm_tables[r], int(l2), k, bit_pack=bit_pack)
-                for dev, r in shares]
-            for (_, r), d in zip(shares, dispatched):
-                _encode_drain_pl(d, norm_tables[r], int(l2), shared_table,
-                                 sections, modes, block_ids[r],
-                                 bit_pack=bit_pack)
+            for rank, dev, r in shares:
+                with _share("compress", "dispatch", rank):
+                    dispatched.append(_encode_dispatch_pl(
+                        _rows_on(dev, block_ids[r], blocks, placed),
+                        norm_tables[r], int(l2), k, bit_pack=bit_pack))
+            for (rank, _, r), d in zip(shares, dispatched):
+                with _share("compress", "drain", rank):
+                    _encode_drain_pl(d, norm_tables[r], int(l2),
+                                     shared_table, sections, modes,
+                                     block_ids[r], bit_pack=bit_pack)
             continue
         if layout is None:
             layout = _FseLayout(n, k)
-        dispatched = [_encode_dispatch_fse(blocks[block_ids[r]],
-                                           norm_tables[r], int(l2), k, dev,
-                                           layout)
-                      for dev, r in shares]
+        for rank, dev, r in shares:
+            with _share("compress", "dispatch", rank):
+                rows = blocks[block_ids[r]]
+                _count("host_bytes.compress.gather", rows.nbytes)
+                dispatched.append(_encode_dispatch_fse(
+                    rows, norm_tables[r], int(l2), k, dev, layout))
         # every share's bit counts are read and the d2h of its words queued
         # before the first share's words are waited for, so that one
         # share's assembly overlaps the copies of the shares after it
         with _stage("ect.compress.fse_collect"):
             for d in dispatched:
                 d.fetch()
-        for (_, r), d in zip(shares, dispatched):
-            _encode_drain_fse(d, norm_tables[r], int(l2), shared_table,
-                              sections, block_ids[r])
+        for (rank, _, r), d in zip(shares, dispatched):
+            with _share("compress", "drain", rank):
+                _encode_drain_fse(d, norm_tables[r], int(l2), shared_table,
+                                  sections, block_ids[r])
 
 
 class _FseLayout:
@@ -600,7 +663,11 @@ def _encode_dispatch_fse(blocks, norm_tables, l2, k, dev, layout):
     ``layout`` is the group's ``_FseLayout``. Returns the ``_FseEncoded``
     that ``_encode_drain_fse`` takes."""
     with _stage("ect.compress.fse_syms"):
+        # the symbols laid out in one fresh array, which the h2d reads
         syms, init_syms = blocks_to_syms(blocks, layout.m, layout.R, k)
+        syms = np.ascontiguousarray(syms)
+        _count("host_bytes.compress.fse_syms",
+               syms.nbytes + init_syms.nbytes)
     with _stage("ect.compress.fse_h2d"):
         syms = to_device(syms, dev, non_blocking=True)
         init_syms = to_device(init_syms, dev, non_blocking=True)
@@ -625,9 +692,11 @@ def _encode_drain_fse(dispatched, norm_tables, l2, shared_table, sections,
     with _stage("ect.compress.fse_assemble"):
         for j, bid in enumerate(block_ids):
             nbytes = (int(total_bits[j]) + 7) // 8
-            payload = words[j, : _cdiv(nbytes, 4)].tobytes()[:nbytes]
-            sections[bid] = (payload if shared_table
-                             else _write_header(norm_tables[j], l2) + payload)
+            payload = words[j].view(np.uint8)[:nbytes]  # the wire's LE words
+            sections[bid] = (payload.tobytes() if shared_table else
+                             b"".join((_write_header(norm_tables[j], l2),
+                                       payload)))
+            _count("host_bytes.compress.sections", len(sections[bid]))
 
 
 def _encode_tail(tail, k, table_log, shared_table, s_shared, sections,
@@ -641,6 +710,7 @@ def _encode_tail(tail, k, table_log, shared_table, s_shared, sections,
     if n < 8 or k_t < 1:
         modes[idx] = MODE_RAW
         sections[idx] = tail.tobytes()
+        _count("host_bytes.compress.escapes", n)
         return
     try:
         if shared_table:
@@ -659,6 +729,7 @@ def _encode_tail(tail, k, table_log, shared_table, s_shared, sections,
     except ValueError:
         modes[idx] = MODE_RAW
         sections[idx] = tail.tobytes()
+        _count("host_bytes.compress.escapes", n)
 
 
 # --- decompress ---------------------------------------------------------------
@@ -747,6 +818,7 @@ def _subframe_parts(pf: _ParsedFrame):
     return entries, pf.crcs, payload
 
 
+@_call_range("decompress")
 def decompress(frame: bytes, *, start: int = 0, length: int | None = None,
                out=None, device=None, sharding=None):
     """Decompress a container frame back to bytes (frames of either
@@ -771,6 +843,7 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
                        length: int | None = None, out=None, device=None,
                        sharding=None):
     """Range-decode an already-parsed frame."""
+    _count("calls.decompress")
     mesh = _mesh(device, sharding)
     if length is None:
         length = pf.total_len - start
@@ -797,8 +870,11 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
         if start == base and span == length:
             # block-aligned range: decode straight into the caller's buffer
             cb_direct = np.frombuffer(cb_view, np.uint8, count=span)
-    out = (cb_direct if cb_direct is not None
-           else np.zeros(max(span, 0), np.uint8))
+    if cb_direct is not None:
+        out = cb_direct
+    else:
+        out = np.zeros(max(span, 0), np.uint8)
+        _count("host_bytes.decompress.out_buffer", out.nbytes)
 
     shared_tbl = shared_l2 = None
     if pf.shared:
@@ -812,6 +888,7 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
         pl_groups: dict[tuple[int, int], list] = {}
         for i in wanted:
             mode, sec = int(pf.modes[i]), pf.section(i)
+            _count("host_bytes.decompress.sections", _copied(sec))
             rl = min(pf.block_size, pf.total_len - i * pf.block_size)
             o = i * pf.block_size - base
             if mode == MODE_RAW:
@@ -827,6 +904,8 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
                     tbl, l2, payload = shared_tbl, shared_l2, sec
                 else:
                     tbl, l2, payload = _read_block_header(sec)
+                    _count("host_bytes.decompress.payloads",
+                           _copied(payload))
                 dst = pl_groups if mode == MODE_FSE_PL else groups
                 dst.setdefault((rl, l2), []).append(
                     (i, payload, tbl, int(pf.offs[i]) + len(sec) - len(payload)))
@@ -834,19 +913,23 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
                 raise ValueError(f"bad block mode {mode}")
 
     # each group splits into one contiguous share per mesh entry
-    fse_calls, pl_calls = ([(items[lo:hi], rl, log2, dev)
+    fse_calls, pl_calls = ([(items[lo:hi], rl, log2, dev, rank)
                             for (rl, log2), items in g.items()
-                            for dev, lo, hi in _shares(len(items), mesh)]
+                            for rank, dev, lo, hi
+                            in _shares(len(items), mesh)]
                            for g in (groups, pl_groups))
     # every share of every group, MODE_FSE and per-lane, is dispatched on
     # its own device before the first is drained (the JAX package's one
     # call over the mesh)
-    fse_dispatched = [_decode_dispatch_fse(items, rl, log2, pf, dev)
-                      for items, rl, log2, dev in fse_calls]
+    fse_dispatched = []
+    for items, rl, log2, dev, rank in fse_calls:
+        with _share("decompress", "dispatch", rank):
+            fse_dispatched.append(_decode_dispatch_fse(items, rl, log2, pf,
+                                                       dev))
     # device repack: the span of the frame that holds a device's per-lane
     # payloads goes to it once, whatever the number of groups and shares
     spans: dict = {}
-    for items, _, _, dev in pl_calls:
+    for items, _, _, dev, _ in pl_calls:
         if _device_repack(dev):
             lo, hi = spans.get(dev, (items[0][3], 0))
             spans[dev] = (min(lo, items[0][3]),
@@ -856,13 +939,17 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
         on_dev = {dev: (DR.bytes_on(pf.frame, lo, hi, dev,
                                     non_blocking=pinned), lo)
                   for dev, (lo, hi) in spans.items()}
-    dispatched = [_decode_dispatch_pl(items, rl, log2, pf, dev,
-                                      on_dev.get(dev))
-                  for items, rl, log2, dev in pl_calls]
-    for (items, rl, _, _), d in zip(fse_calls, fse_dispatched):
-        _decode_drain_fse(d, items, rl, pf, out, base)
-    for (items, rl, _, _), d in zip(pl_calls, dispatched):
-        _decode_drain_pl(d, items, rl, pf, out, base)
+    dispatched = []
+    for items, rl, log2, dev, rank in pl_calls:
+        with _share("decompress", "dispatch", rank):
+            dispatched.append(_decode_dispatch_pl(items, rl, log2, pf, dev,
+                                                  on_dev.get(dev)))
+    for (items, rl, _, _, rank), d in zip(fse_calls, fse_dispatched):
+        with _share("decompress", "drain", rank):
+            _decode_drain_fse(d, items, rl, pf, out, base)
+    for (items, rl, _, _, rank), d in zip(pl_calls, dispatched):
+        with _share("decompress", "drain", rank):
+            _decode_drain_pl(d, items, rl, pf, out, base)
     with _stage("ect.decompress.output"):
         if pf.crcs is not None:
             for i in wanted:
@@ -875,8 +962,23 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
             if cb_direct is None:  # unaligned range: one staging copy
                 np.frombuffer(cb_view, np.uint8, count=length)[:] = \
                     out[start - base: start - base + length]
-            return length
-        return out[start - base: start - base + length].tobytes()
+            result = length
+        else:
+            result = out[start - base: start - base + length].tobytes()
+            _count("host_bytes.decompress.output", len(result))
+    with _stage("ect.decompress.release"):
+        # the call's host buffers, and the loops' last references to them,
+        # go inside its range, not after it
+        del out, cb_direct, groups, pl_groups, fse_calls, pl_calls
+        del fse_dispatched, dispatched, on_dev
+        sec = payload = items = d = None
+    return result
+
+
+def _copied(buf) -> int:
+    """The bytes of ``buf`` when slicing the frame copied them (a ``bytes``
+    or ``bytearray`` frame), 0 for a view (a ``memoryview`` frame)."""
+    return 0 if isinstance(buf, memoryview) else len(buf)
 
 
 def _decode_dispatch_pl(items, raw_len, log2, pf, dev, span=None):
@@ -919,6 +1021,7 @@ def _decode_dispatch_pl(items, raw_len, log2, pf, dev, span=None):
                     raise ValueError(f"block {i}: bad lane sizes")
                 if total & 7 and lanes_sec[-1] >> (total & 7):
                     raise ValueError(f"block {i}: lane framing error")
+                _count("host_bytes.decompress.payloads", _copied(lanes_sec))
                 sizes[j] = sz
                 if span is None:
                     payloads.append(lanes_sec)
@@ -942,6 +1045,8 @@ def _decode_dispatch_pl(items, raw_len, log2, pf, dev, span=None):
             sizes[j] = sz
             if span is None:
                 payloads.append(sec[2 * k:])
+                _count("host_bytes.decompress.payloads",
+                       _copied(payloads[-1]))
             lane_offs[j] = sec_off + 2 * k
             norm_tables[j] = nt
     W = -(-(int(sizes.max()) // 32 + 3) // 16) * 16
@@ -970,6 +1075,7 @@ def _decode_dispatch_pl(items, raw_len, log2, pf, dev, span=None):
                     words = PL.lane_split_batch(
                         payloads[j0: j0 + chunk], sizes[j0: j0 + chunk], k,
                         W, pack_bits=bool(pf.packed))
+                    _count("host_bytes.decompress.split", words.nbytes)
                 words = to_device(words, dev, non_blocking=True)
             handles.append((j0, PL.decode_lanes_norm(
                 words, sizes_dev, norm_tables[j0: j0 + chunk], k=k, L=log2, R=R,
@@ -1011,6 +1117,7 @@ def _decode_dispatch_fse(items, raw_len, log2, pf, dev):
         max_bytes = max(len(p) for _, p, _, _ in items)
         Wd = _cdiv(max_bytes, 4) + 2
         words = np.zeros((B, Wd), np.uint32)
+        _count("host_bytes.decompress.fse_words", words.nbytes)
         word_bytes = words.view(np.uint8)  # little-endian words, as the wire
         total_bits = np.zeros(B, np.int64)
         norm_tables = np.zeros((B, 256), np.int32)

@@ -141,12 +141,16 @@ def tables_from_norm(norm_tables: np.ndarray, L: int, device,
     4 ms of each other, and at 8 tables a call the routes tie). A CUDA
     copy is queued without waiting for the card (``unsigned.to_device``'s
     ``non_blocking``), so a lazy call dispatches behind the chunks before
-    it. A malformed table raises ValueError on either route."""
+    it. A malformed table raises ValueError on either route. The build is
+    a stage of the direction that reads it, the ``torch.profiler`` range
+    ``ect.decompress.tables`` for the decode half and
+    ``ect.compress.tables`` otherwise."""
     want = TB.half_code(half)
     dev = torch.device(device)
     if host_tables is None:
         host_tables = HOST_TABLES_ON_CUDA if dev.type == "cuda" else True
-    with record_function("ect.tables"):
+    op = "decompress" if half == "decode" else "compress"
+    with record_function(f"ect.{op}.tables"):
         if not host_tables:
             nt = TB.check_norm_tables(norm_tables, int(L))
             return LaneTables(*TB.build_tables(

@@ -92,7 +92,7 @@ def sharded_histogram(blocks, mesh) -> torch.Tensor:
     pinned = F._spans_cards(mesh)
     parts = [histogram_blocks(to_device(blocks[lo:hi], dev,
                                         non_blocking=pinned)).sum(dim=0)
-             for dev, lo, hi in F._shares(blocks.shape[0], mesh)]
+             for _, dev, lo, hi in F._shares(blocks.shape[0], mesh)]
     if not parts:
         return torch.zeros(256, dtype=torch.int64, device=mesh[0])
     return torch.stack([p.to(mesh[0]) for p in parts]).sum(dim=0)

@@ -41,14 +41,13 @@ class FrameStats:
         return extra / max(self.compressed_len, 1)
 
 
-_MODE_NAMES = {F.MODE_FSE: "fse", F.MODE_RAW: "raw", F.MODE_RLE: "rle",
-               F.MODE_FSE_PL: "fse_pl"}
-
-
 def frame_stats(frame) -> FrameStats:
     """Parse a container frame's structure without decoding payloads: block
     modes, the table log of each FSE-coded block, header, lane-size-table
     and payload bytes."""
+    # read at the call: ``frame`` imports this package while it loads
+    mode_names = {F.MODE_FSE: "fse", F.MODE_RAW: "raw", F.MODE_RLE: "rle",
+                  F.MODE_FSE_PL: "fse_pl"}
     pf = F._parse_frame(frame)
     mode_counts: dict = {}
     log_counts: dict = {}
@@ -59,7 +58,7 @@ def frame_stats(frame) -> FrameStats:
                   if pf.shared and pf.shared_hdr else None)
     for i in range(pf.n_blocks):
         mode = int(pf.modes[i])
-        name = _MODE_NAMES.get(mode, "?")
+        name = mode_names.get(mode, "?")
         mode_counts[name] = mode_counts.get(name, 0) + 1
         sec = bytes(pf.section(i))
         if mode in (F.MODE_FSE, F.MODE_FSE_PL):

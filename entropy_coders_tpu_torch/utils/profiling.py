@@ -1,7 +1,19 @@
 """Profiling hooks (counterpart of ``entropy_coders_tpu/utils/profiling.py``):
 ``trace`` captures a ``torch.profiler`` trace where the JAX package captures
 a ``jax.profiler`` one; ``timed`` wall-clocks a block into a
-``TimedResult``, as the JAX package's does."""
+``TimedResult``, as the JAX package's does.
+
+``counters`` holds the port's own counts, always on (a dict add a site a
+call, no switch): ``calls.compress`` and ``calls.decompress``, the frame
+calls made (every decode of a parsed frame counts as a decompress), and
+``host_bytes.<op>.<site>``, the bytes of the fresh host buffers those calls
+made at each site whose buffer grows with the input (``frame``: the
+output's ``np.zeros`` and ``tobytes``, the sections, the frame's join, the
+RAW and RLE escapes, the host copies of a shared-stream share). A buffer
+that is reused, or given by the caller (``out=``), counts 0; so does the
+pinned staging of the copies, which torch's caching host allocator keeps
+between calls. Take ``dict(counters)`` before and after a call to read
+what it made."""
 
 from __future__ import annotations
 
@@ -11,7 +23,14 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["TimedResult", "timed", "trace"]
+__all__ = ["TimedResult", "count", "counters", "timed", "trace"]
+
+counters: dict[str, int] = {}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` of ``counters``."""
+    counters[name] = counters.get(name, 0) + int(n)
 
 
 @contextlib.contextmanager

@@ -76,7 +76,7 @@ def spy_all(monkeypatch):
 def chunks(n_rows, n):
     """Kernel calls of a group of ``n_rows`` blocks over ``n`` ranks."""
     return sum(-(-(hi - lo) // CHUNK_BLOCKS)
-               for _, lo, hi in F._shares(n_rows, (None,) * n))
+               for _, _, lo, hi in F._shares(n_rows, (None,) * n))
 
 
 def dispatched_before_collected(entries):
@@ -148,7 +148,7 @@ def test_corrupt_block_in_last_share_raises(monkeypatch, n, kind):
         # after every share before it was dispatched and before any drain
         last = F._shares(8, mesh)[-1]
         assert log == [("dispatch", 9)] * (chunks(8, n) - chunks(
-            last[2] - last[1], 1))
+            last[3] - last[2], 1))
     with pytest.raises(ValueError):
         F.decompress(frame, device="cpu")
 
@@ -385,5 +385,5 @@ def test_histograms_dispatched_before_any_collect(monkeypatch, jax_frame, n):
     mesh = (torch.device("cpu"),) * n
     assert P.compress(data, mesh, **KW) == jframe
     full = len(data) // BS
-    assert shares == [hi - lo for _, lo, hi in F._shares(full, mesh)]
+    assert shares == [hi - lo for _, _, lo, hi in F._shares(full, mesh)]
     assert log == ["hist"] * len(shares) + ["hist_collect"] * len(shares)
