@@ -54,8 +54,10 @@ after it. The unsharded call is the one-share case of the same code.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import struct
+import types
 import zlib
 from dataclasses import dataclass
 
@@ -807,6 +809,30 @@ def _parse_frame(frame: bytes) -> _ParsedFrame:
                         bool(flags & FLAG_PACKED))
 
 
+# CPython's own constructor of a ``bytes`` object whose contents the caller
+# writes before anyone else sees it (``str`` NULL), and its storage's address
+_PyBytes_FromStringAndSize = ctypes.PYFUNCTYPE(
+    ctypes.py_object, ctypes.c_char_p, ctypes.c_ssize_t)(
+        ("PyBytes_FromStringAndSize", ctypes.pythonapi))
+_PyBytes_AsString = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.py_object)(
+    ("PyBytes_AsString", ctypes.pythonapi))
+
+
+def _new_bytes(n: int) -> tuple[bytes, np.ndarray]:
+    """A new ``bytes`` of ``n`` uninitialised bytes and a writable uint8
+    view of its storage, to be written in full before the object is handed
+    out. The view holds the object (its ``base``), so it never outlives the
+    storage, whatever keeps it. ``n == 0`` gives ``b""``, the shared empty
+    object, and an empty array that is no view of it."""
+    if n == 0:
+        return b"", np.empty(0, np.uint8)
+    obj = _PyBytes_FromStringAndSize(None, n)
+    view = np.asarray(types.SimpleNamespace(obj=obj, __array_interface__=dict(
+        data=(_PyBytes_AsString(obj), False), shape=(n,), typestr="|u1",
+        version=3)))
+    return obj, view
+
+
 def _subframe_parts(pf: _ParsedFrame):
     """(entries u32, crcs | None, payload bytes) of a parsed frame: the
     pieces a larger frame assembles from sub-frames (the ordered multi-host
@@ -826,11 +852,15 @@ def decompress(frame: bytes, *, start: int = 0, length: int | None = None,
 
     ``start``/``length`` decode only the blocks overlapping that byte range
     and return exactly that slice. When the frame carries per-block crc32s,
-    each decoded block is verified. ``out``: optional writable buffer the
-    decoded range is written into (returns the byte count written instead
-    of ``bytes``); block-aligned ranges decode straight into it. On a
+    each decoded block is verified. Without ``out`` a whole frame, or any
+    block-aligned range, decodes straight into the ``bytes`` returned; an
+    unaligned range decodes its blocks into a staging buffer and returns a
+    copy of the slice. ``out``: optional writable buffer the decoded range
+    is written into (returns the byte count written instead of ``bytes``);
+    block-aligned ranges decode straight into it. On a
     ValueError (corrupt frame / crc mismatch) ``out``'s contents are
-    unspecified. ``device`` is where the block work runs (default
+    unspecified; without ``out``, the ``bytes`` being decoded into is
+    zeroed before the error leaves the call. ``device`` is where the block work runs (default
     ``"cuda"``, which raises when CUDA is unavailable); ``sharding``
     spreads it over ``sharding.mesh`` as in ``compress``."""
     with _stage("ect.decompress.parse"):
@@ -859,7 +889,9 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
     base = b_lo * pf.block_size
     span = (min(wanted.stop * pf.block_size, pf.total_len) - base
             if len(wanted) else 0)
-    cb_direct = cb_view = None
+    aligned = start == base and span == length
+    in_place = out is None and aligned
+    cb_direct = cb_view = result = None
     if out is not None:
         cb_view = memoryview(out).cast("B")
         if cb_view.readonly:
@@ -867,105 +899,123 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
         if cb_view.nbytes < length:
             raise ValueError(
                 f"out buffer too small: {cb_view.nbytes} < {length}")
-        if start == base and span == length:
+        if aligned:
             # block-aligned range: decode straight into the caller's buffer
             cb_direct = np.frombuffer(cb_view, np.uint8, count=span)
     if cb_direct is not None:
         out = cb_direct
+    elif in_place:
+        # block-aligned range, no out=: decode straight into the bytes the
+        # call returns, every one of which the blocks below write
+        result, out = _new_bytes(span)
+        _count("host_bytes.decompress.output", span)
+        _count("decompress.in_place")
     else:
         out = np.zeros(max(span, 0), np.uint8)
         _count("host_bytes.decompress.out_buffer", out.nbytes)
 
-    shared_tbl = shared_l2 = None
-    if pf.shared:
-        shared_tbl, shared_l2, rest = _read_block_header(pf.shared_hdr)
-        if rest:
-            raise ValueError("trailing bytes after shared histogram header")
+    try:
+        shared_tbl = shared_l2 = None
+        if pf.shared:
+            shared_tbl, shared_l2, rest = _read_block_header(pf.shared_hdr)
+            if rest:
+                raise ValueError(
+                    "trailing bytes after shared histogram header")
 
-    with _stage("ect.decompress.parse"):
-        # group FSE blocks by (raw_len, log2) for batched decode
-        groups: dict[tuple[int, int], list] = {}
-        pl_groups: dict[tuple[int, int], list] = {}
-        for i in wanted:
-            mode, sec = int(pf.modes[i]), pf.section(i)
-            _count("host_bytes.decompress.sections", _copied(sec))
-            rl = min(pf.block_size, pf.total_len - i * pf.block_size)
-            o = i * pf.block_size - base
-            if mode == MODE_RAW:
-                if len(sec) != rl:
-                    raise ValueError(f"raw block {i} length mismatch")
-                out[o: o + rl] = np.frombuffer(sec, np.uint8)
-            elif mode == MODE_RLE:
-                if len(sec) != 1:
-                    raise ValueError(f"rle block {i} length mismatch")
-                out[o: o + rl] = sec[0]
-            elif mode in (MODE_FSE, MODE_FSE_PL):
-                if pf.shared:
-                    tbl, l2, payload = shared_tbl, shared_l2, sec
-                else:
-                    tbl, l2, payload = _read_block_header(sec)
-                    _count("host_bytes.decompress.payloads",
-                           _copied(payload))
-                dst = pl_groups if mode == MODE_FSE_PL else groups
-                dst.setdefault((rl, l2), []).append(
-                    (i, payload, tbl, int(pf.offs[i]) + len(sec) - len(payload)))
-            else:
-                raise ValueError(f"bad block mode {mode}")
-
-    # each group splits into one contiguous share per mesh entry
-    fse_calls, pl_calls = ([(items[lo:hi], rl, log2, dev, rank)
-                            for (rl, log2), items in g.items()
-                            for rank, dev, lo, hi
-                            in _shares(len(items), mesh)]
-                           for g in (groups, pl_groups))
-    # every share of every group, MODE_FSE and per-lane, is dispatched on
-    # its own device before the first is drained (the JAX package's one
-    # call over the mesh)
-    fse_dispatched = []
-    for items, rl, log2, dev, rank in fse_calls:
-        with _share("decompress", "dispatch", rank):
-            fse_dispatched.append(_decode_dispatch_fse(items, rl, log2, pf,
-                                                       dev))
-    # device repack: the span of the frame that holds a device's per-lane
-    # payloads goes to it once, whatever the number of groups and shares
-    spans: dict = {}
-    for items, _, _, dev, _ in pl_calls:
-        if _device_repack(dev):
-            lo, hi = spans.get(dev, (items[0][3], 0))
-            spans[dev] = (min(lo, items[0][3]),
-                          max(hi, items[-1][3] + len(items[-1][1])))
-    with _stage("ect.decompress.h2d"):
-        pinned = _spans_cards(mesh)
-        on_dev = {dev: (DR.bytes_on(pf.frame, lo, hi, dev,
-                                    non_blocking=pinned), lo)
-                  for dev, (lo, hi) in spans.items()}
-    dispatched = []
-    for items, rl, log2, dev, rank in pl_calls:
-        with _share("decompress", "dispatch", rank):
-            dispatched.append(_decode_dispatch_pl(items, rl, log2, pf, dev,
-                                                  on_dev.get(dev)))
-    for (items, rl, _, _, rank), d in zip(fse_calls, fse_dispatched):
-        with _share("decompress", "drain", rank):
-            _decode_drain_fse(d, items, rl, pf, out, base)
-    for (items, rl, _, _, rank), d in zip(pl_calls, dispatched):
-        with _share("decompress", "drain", rank):
-            _decode_drain_pl(d, items, rl, pf, out, base)
-    with _stage("ect.decompress.output"):
-        if pf.crcs is not None:
+        with _stage("ect.decompress.parse"):
+            # group FSE blocks by (raw_len, log2) for batched decode
+            groups: dict[tuple[int, int], list] = {}
+            pl_groups: dict[tuple[int, int], list] = {}
             for i in wanted:
-                o = i * pf.block_size - base
+                mode, sec = int(pf.modes[i]), pf.section(i)
+                _count("host_bytes.decompress.sections", _copied(sec))
                 rl = min(pf.block_size, pf.total_len - i * pf.block_size)
-                if zlib.crc32(out[o: o + rl]) & 0xFFFFFFFF != int(pf.crcs[i]):
-                    raise ValueError(
-                        f"block {i}: crc mismatch (corrupt frame)")
-        if cb_view is not None:
-            if cb_direct is None:  # unaligned range: one staging copy
-                np.frombuffer(cb_view, np.uint8, count=length)[:] = \
-                    out[start - base: start - base + length]
-            result = length
-        else:
-            result = out[start - base: start - base + length].tobytes()
-            _count("host_bytes.decompress.output", len(result))
+                o = i * pf.block_size - base
+                if mode == MODE_RAW:
+                    if len(sec) != rl:
+                        raise ValueError(f"raw block {i} length mismatch")
+                    out[o: o + rl] = np.frombuffer(sec, np.uint8)
+                elif mode == MODE_RLE:
+                    if len(sec) != 1:
+                        raise ValueError(f"rle block {i} length mismatch")
+                    out[o: o + rl] = sec[0]
+                elif mode in (MODE_FSE, MODE_FSE_PL):
+                    if pf.shared:
+                        tbl, l2, payload = shared_tbl, shared_l2, sec
+                    else:
+                        tbl, l2, payload = _read_block_header(sec)
+                        _count("host_bytes.decompress.payloads",
+                               _copied(payload))
+                    dst = pl_groups if mode == MODE_FSE_PL else groups
+                    dst.setdefault((rl, l2), []).append(
+                        (i, payload, tbl,
+                         int(pf.offs[i]) + len(sec) - len(payload)))
+                else:
+                    raise ValueError(f"bad block mode {mode}")
+
+        # each group splits into one contiguous share per mesh entry
+        fse_calls, pl_calls = ([(items[lo:hi], rl, log2, dev, rank)
+                                for (rl, log2), items in g.items()
+                                for rank, dev, lo, hi
+                                in _shares(len(items), mesh)]
+                               for g in (groups, pl_groups))
+        # every share of every group, MODE_FSE and per-lane, is dispatched on
+        # its own device before the first is drained (the JAX package's one
+        # call over the mesh)
+        fse_dispatched = []
+        for items, rl, log2, dev, rank in fse_calls:
+            with _share("decompress", "dispatch", rank):
+                fse_dispatched.append(_decode_dispatch_fse(items, rl, log2, pf,
+                                                           dev))
+        # device repack: the span of the frame that holds a device's per-lane
+        # payloads goes to it once, whatever the number of groups and shares
+        spans: dict = {}
+        for items, _, _, dev, _ in pl_calls:
+            if _device_repack(dev):
+                lo, hi = spans.get(dev, (items[0][3], 0))
+                spans[dev] = (min(lo, items[0][3]),
+                              max(hi, items[-1][3] + len(items[-1][1])))
+        with _stage("ect.decompress.h2d"):
+            pinned = _spans_cards(mesh)
+            on_dev = {dev: (DR.bytes_on(pf.frame, lo, hi, dev,
+                                        non_blocking=pinned), lo)
+                      for dev, (lo, hi) in spans.items()}
+        dispatched = []
+        for items, rl, log2, dev, rank in pl_calls:
+            with _share("decompress", "dispatch", rank):
+                dispatched.append(_decode_dispatch_pl(items, rl, log2, pf, dev,
+                                                      on_dev.get(dev)))
+        for (items, rl, _, _, rank), d in zip(fse_calls, fse_dispatched):
+            with _share("decompress", "drain", rank):
+                _decode_drain_fse(d, items, rl, pf, out, base)
+        for (items, rl, _, _, rank), d in zip(pl_calls, dispatched):
+            with _share("decompress", "drain", rank):
+                _decode_drain_pl(d, items, rl, pf, out, base)
+        with _stage("ect.decompress.output"):
+            if pf.crcs is not None:
+                for i in wanted:
+                    o = i * pf.block_size - base
+                    rl = min(pf.block_size, pf.total_len - i * pf.block_size)
+                    crc = zlib.crc32(out[o: o + rl]) & 0xFFFFFFFF
+                    if crc != int(pf.crcs[i]):
+                        raise ValueError(
+                            f"block {i}: crc mismatch (corrupt frame)")
+            if cb_view is not None:
+                if cb_direct is None:  # unaligned range: one staging copy
+                    np.frombuffer(cb_view, np.uint8, count=length)[:] = \
+                        out[start - base: start - base + length]
+                result = length
+            elif not in_place:  # unaligned range: one staging copy
+                result = out[start - base: start - base + length].tobytes()
+                _count("host_bytes.decompress.output", len(result))
+    except BaseException:
+        if in_place:
+            # a failed call hands out nothing: the traceback's frames still
+            # reach the object, so none of its stale or partly written
+            # bytes stays readable there
+            out.fill(0)
+            result = None
+        raise
     with _stage("ect.decompress.release"):
         # the call's host buffers, and the loops' last references to them,
         # go inside its range, not after it
@@ -1123,14 +1173,12 @@ def _decode_dispatch_fse(items, raw_len, log2, pf, dev):
         norm_tables = np.zeros((B, 256), np.int32)
         for j, (i, payload, nt, _) in enumerate(items):
             buf = np.frombuffer(payload, np.uint8)
-            nz = np.flatnonzero(buf)
-            if nz.size == 0:
-                raise ValueError(f"block {i}: missing marker bit")
-            last = int(nz[-1])
-            marker = last * 8 + int(buf[last]).bit_length() - 1
-            if len(buf) * 8 - marker > 8:
-                raise ValueError(f"block {i}: framing error")
-            total_bits[j] = marker
+            # the marker is the top set bit; it lies within 8 bits of the
+            # end only if it is in the last byte
+            if not len(buf) or buf[-1] == 0:
+                raise ValueError(f"block {i}: " + (
+                    "framing error" if buf.any() else "missing marker bit"))
+            total_bits[j] = (len(buf) - 1) * 8 + int(buf[-1]).bit_length() - 1
             word_bytes[j, : len(buf)] = buf
             norm_tables[j] = nt
     with _stage("ect.decompress.fse_h2d"):

@@ -8,12 +8,14 @@ call, no switch): ``calls.compress`` and ``calls.decompress``, the frame
 calls made (every decode of a parsed frame counts as a decompress), and
 ``host_bytes.<op>.<site>``, the bytes of the fresh host buffers those calls
 made at each site whose buffer grows with the input (``frame``: the
-output's ``np.zeros`` and ``tobytes``, the sections, the frame's join, the
-RAW and RLE escapes, the host copies of a shared-stream share). A buffer
-that is reused, or given by the caller (``out=``), counts 0; so does the
-pinned staging of the copies, which torch's caching host allocator keeps
-between calls. Take ``dict(counters)`` before and after a call to read
-what it made."""
+decompressed ``bytes``, an unaligned range's staging buffer, the sections,
+the frame's join, the RAW and RLE escapes, the host copies of a
+shared-stream share). A buffer that is reused, or given by the caller
+(``out=``), counts 0; so does the pinned staging of the copies, which
+torch's caching host allocator keeps between calls.
+``decompress.in_place`` counts the decompresses decoded straight into the
+``bytes`` they return. Take ``dict(counters)`` before and after a call to
+read what it made."""
 
 from __future__ import annotations
 

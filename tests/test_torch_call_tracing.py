@@ -257,8 +257,9 @@ def _expected_compress(data, frame, ckw, n, repack, discarded) -> Counter:
 def _expected_decompress(frame, dkw, n, repack) -> Counter:
     """The bytes each decompress site allocates, from the frame: the
     sections sliced from it, the payloads past their headers (and, on the
-    C++ route, past the lane sizes), the output buffer and its
-    ``tobytes``, the shared-stream shares' padded words and the C++
+    C++ route, past the lane sizes), the returned ``bytes`` (decoded into
+    in place over a block-aligned range; an unaligned range's staging
+    buffer besides), the shared-stream shares' padded words and the C++
     split's words."""
     pf = F._parse_frame(frame)
     bs, total = pf.block_size, pf.total_len
@@ -267,8 +268,7 @@ def _expected_decompress(frame, dkw, n, repack) -> Counter:
     lo, hi = start // bs, -(-(start + length) // bs)
     span = min(hi * bs, total) - lo * bs
     want = Counter(calls=1)
-    direct = dkw.get("out") and start == lo * bs and span == length
-    if not direct:
+    if not (start == lo * bs and span == length):
         want["out_buffer"] = span
     if not dkw.get("out"):
         want["output"] = length

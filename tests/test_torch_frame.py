@@ -7,6 +7,7 @@ Tolerance: exact. Frames are compared byte for byte (golden frames by
 sha256), decoded bytes equal the input. JAX frames are built once per
 configuration by a module-scoped fixture (each costs seconds)."""
 
+import ctypes
 import hashlib
 import json
 import struct
@@ -19,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from entropy_coders_tpu import frame as JF  # noqa: E402
 from entropy_coders_tpu_torch import frame as F  # noqa: E402
+from entropy_coders_tpu_torch.utils import profiling  # noqa: E402
 from tests.conftest import gen_sequence  # noqa: E402
 from tests.data.generate_golden import make_input, make_mixed  # noqa: E402
 
@@ -279,3 +281,147 @@ def test_empty_and_tiny_inputs():
     for n in (1, 2, 7, 15, 16, 17):
         d = bytes(range(n))
         assert decompress(compress(d, block_size=16, k=2, lanes=False)) == d
+
+
+# --- the returned bytes: decoded into in place ---------------------------------------
+
+
+def _counts(before):
+    now = profiling.counters
+    return {key: now.get(key, 0) - before.get(key, 0)
+            for key in ("decompress.in_place", "host_bytes.decompress.output",
+                        "host_bytes.decompress.out_buffer")}
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["plain", "crc"])
+def mixed_frame(request):
+    """A frame of every block mode: RLE, RAW, two MODE_FSE_PL blocks and a
+    777-byte MODE_FSE tail (not lane-divisible), 4 KiB blocks, k = 128."""
+    bs = 4096
+    rng = np.random.default_rng(47)
+    data = np.concatenate([np.full(bs, 9, np.uint8),
+                           rng.integers(0, 256, bs, np.uint8),
+                           gen_sequence(0.2, 2 * bs + 777, seed=47)])
+    frame = compress(data, block_size=bs, k=128, lanes=True,
+                     checksum=request.param)
+    assert F._parse_frame(frame).modes.tolist() == [
+        F.MODE_RLE, F.MODE_RAW, F.MODE_FSE_PL, F.MODE_FSE_PL, F.MODE_FSE]
+    return data, frame
+
+
+@pytest.mark.parametrize("start,length", [(0, None), (4096, 3 * 4096 + 777),
+                                          (4096, 2 * 4096)],
+                         ids=["whole", "aligned_to_end", "aligned"])
+def test_aligned_decode_returns_its_buffer(mixed_frame, start, length):
+    data, frame = mixed_frame
+    end = len(data) if length is None else start + length
+    before = dict(profiling.counters)
+    got = decompress(frame, start=start, length=length)
+    assert _counts(before) == {"decompress.in_place": 1,
+                               "host_bytes.decompress.output": end - start,
+                               "host_bytes.decompress.out_buffer": 0}
+    assert type(got) is bytes
+    assert got == data[start:end].tobytes()
+    assert got == JF.decompress(frame, start=start, length=length,
+                                interpret=True)
+    assert hash(got) == hash(bytes(bytearray(got)))  # no stale cached hash
+
+
+def test_unaligned_range_stages_its_blocks(mixed_frame):
+    data, frame = mixed_frame
+    before = dict(profiling.counters)
+    got = decompress(frame, start=100, length=5000)
+    assert _counts(before) == {"decompress.in_place": 0,
+                               "host_bytes.decompress.output": 5000,
+                               "host_bytes.decompress.out_buffer": 2 * 4096}
+    assert type(got) is bytes and got == data[100:5100].tobytes()
+
+
+def test_empty_results_leave_the_empty_bytes_unwritten(pl_frame):
+    _, frame = pl_frame
+    empty_at = F._PyBytes_AsString(b"")
+    assert ctypes.string_at(empty_at, 1) == b"\0"
+    for got in (decompress(frame, start=4096, length=0),
+                decompress(frame, start=0, length=0),
+                decompress(compress(b"", lanes=False))):
+        assert type(got) is bytes and got == b""
+    # the shared empty object still holds its terminator alone
+    assert F._PyBytes_AsString(b"") == empty_at
+    assert ctypes.string_at(empty_at, 1) == b"\0"
+
+
+def test_consecutive_results_share_no_buffer(pl_frame, mixed_frame):
+    data_a, frame_a = pl_frame
+    data_b, frame_b = mixed_frame
+    a = decompress(frame_a)
+    b = decompress(frame_b)
+    c = decompress(frame_a)
+    assert a == data_a.tobytes() and b == data_b.tobytes() and c == a
+    assert len({F._PyBytes_AsString(x) for x in (a, b, c)}) == 3
+
+
+def test_failed_decode_hands_out_nothing(mixed_frame):
+    data, frame = mixed_frame
+    bad = bytearray(frame)
+    bad[-1] ^= 0x01  # a payload byte of the last (MODE_FSE) block
+    before = dict(profiling.counters)
+    with pytest.raises(ValueError):
+        decompress(bytes(bad))
+    assert _counts(before)["decompress.in_place"] == 1
+    assert decompress(frame) == data.tobytes()
+
+
+def test_failed_decode_leaves_no_written_bytes_reachable(mixed_frame):
+    """A call that raises zeroes the bytes it was decoding into, so the
+    traceback's frames reach none of its written, or never written, bytes:
+    at the MODE_FSE tail's drain (only RAW and RLE written), at a per-lane
+    block's drain (the tail written too) and, with crcs, at the crc check
+    (every block written)."""
+    data, frame = mixed_frame
+    pf = F._parse_frame(frame)
+    sites = {"fse_tail": len(frame) - 1,
+             "pl_block": int(pf.offs[2] + pf.lens[2] // 2)}
+    if pf.crcs is not None:
+        sites["crc"] = frame.index(struct.pack("<I", int(pf.crcs[2])))
+    for site, at in sites.items():
+        bad = bytearray(frame)
+        bad[at] ^= 0x01
+        with pytest.raises(ValueError) as err:
+            decompress(bytes(bad))
+        seen = 0
+        tb = err.tb
+        while tb is not None:
+            if tb.tb_frame.f_code.co_filename == F.__file__:
+                local = tb.tb_frame.f_locals
+                assert local.get("result") is None, site
+                for v in local.values():
+                    if (isinstance(v, (bytes, np.ndarray))
+                            and len(v) == len(data)):
+                        assert not np.frombuffer(v, np.uint8).any(), site
+                        seen += 1
+            tb = tb.tb_next
+        assert seen, site  # the decode's view, in the call's own frames
+
+
+@pytest.mark.parametrize("fault,message", [("zeros", "missing marker bit"),
+                                           ("last_zero", "framing error")])
+def test_fse_marker_checks_match_jax(fault, message):
+    """A MODE_FSE payload with no set bit, or whose last byte is zero (its
+    marker then lies more than 8 bits from the end), raises as in the JAX
+    package."""
+    data = gen_sequence(0.2, 2 * 1024, seed=49)
+    frame = compress(data, block_size=1024, k=4, lanes=False)
+    pf = F._parse_frame(frame)
+    assert (pf.modes == F.MODE_FSE).all()
+    _, _, payload = F._read_block_header(pf.section(1))
+    at = int(pf.offs[1] + pf.lens[1]) - len(payload)
+    bad = bytearray(frame)
+    if fault == "zeros":
+        bad[at: at + len(payload)] = bytes(len(payload))
+    else:
+        assert payload[0] and payload[-1]
+        bad[at + len(payload) - 1] = 0
+    with pytest.raises(ValueError, match=f"block 1: {message}"):
+        decompress(bytes(bad))
+    with pytest.raises(ValueError, match=f"block 1: {message}"):
+        JF.decompress(bytes(bad))
