@@ -18,9 +18,11 @@ Pipeline per frame:
   first line until its locals are released; its stages are named ranges
   inside it (``ect.compress.*``, ``ect.decompress.*``; on a mesh each
   share's dispatch and drain, ``ect.<op>.share_dispatch.<rank>`` and
-  ``.share_drain.<rank>``), so a trace splits the host's time by stage.
-  The calls count themselves and the bytes of the fresh host buffers they
-  make (``utils.profiling.counters``).
+  ``.share_drain.<rank>``; a frame's crc pass ``ect.<op>.crc`` and each
+  bit-packed block's lane-size table ``ect.<op>.size_table``), so a trace
+  splits the host's time by stage. The calls count themselves, the bytes
+  of the fresh host buffers they make, the bytes they checksum and the
+  size tables they code (``utils.profiling.counters``).
 
 ``device`` selects where the block work runs. It defaults to ``"cuda"`` and
 raises when CUDA is unavailable; ``device="cpu"`` runs the kernels' plain
@@ -389,10 +391,12 @@ def compress(
             [len(s) for s in sections], np.uint32)
         parts.append(entries.astype("<u4").tobytes())
         if checksum:
-            crcs = np.array(
-                [zlib.crc32(data[i * block_size: i * block_size + raw_lens[i]])
-                 & 0xFFFFFFFF for i in range(n_blocks)], np.uint32)
-            parts.append(crcs.astype("<u4").tobytes())
+            with _stage("ect.compress.crc"):
+                crcs = np.array(
+                    [zlib.crc32(data[i * block_size:][:rl]) & 0xFFFFFFFF
+                     for i, rl in enumerate(raw_lens)], np.uint32)
+                parts.append(crcs.astype("<u4").tobytes())
+            _count("crc.compress", total_len)
         parts.extend(sections)
         out = b"".join(parts)
         _count("host_bytes.compress.frame", len(out))
@@ -425,35 +429,44 @@ def _pack_size_table(st: bytes) -> bytes:
     """FLAG_PACKED lane-size table: ``u16 cs_len`` + either the
     FSE-compressed table (cs_len > 0; reference k=2 frame over the raw u16
     LE bytes) or the raw table (cs_len == 0, incompressible or degenerate
-    fallback)."""
-    try:
-        cs = native.compress(st, k=2)
-        if 0 < len(cs) < min(len(st), 1 << 16):
-            return struct.pack("<H", len(cs)) + cs
-    except ValueError:
-        pass  # degenerate distribution: fall through to raw
-    return struct.pack("<H", 0) + st
+    fallback). Each call is the range ``ect.compress.size_table`` and
+    counts ``size_table.compress.coded`` or ``.raw``."""
+    with _stage("ect.compress.size_table"):
+        try:
+            cs = native.compress(st, k=2)
+            if 0 < len(cs) < min(len(st), 1 << 16):
+                _count("size_table.compress.coded")
+                return struct.pack("<H", len(cs)) + cs
+        except ValueError:
+            pass  # degenerate distribution: fall through to raw
+        _count("size_table.compress.raw")
+        return struct.pack("<H", 0) + st
 
 
 def _unpack_size_table(sec: bytes, k: int) -> tuple[np.ndarray, bytes]:
-    """Inverse of _pack_size_table: returns (sizes (k,) int32, rest)."""
-    if len(sec) < 2:
-        raise ValueError("truncated lane size table")
-    (cs_len,) = struct.unpack_from("<H", sec)
-    if cs_len == 0:
-        if len(sec) < 2 + 2 * k:
+    """Inverse of _pack_size_table: returns (sizes (k,) int32, rest). Each
+    call is the range ``ect.decompress.size_table`` and counts
+    ``size_table.decompress.coded`` or ``.raw``."""
+    with _stage("ect.decompress.size_table"):
+        if len(sec) < 2:
             raise ValueError("truncated lane size table")
-        st = sec[2: 2 + 2 * k]
-        return (np.frombuffer(st, "<u2").astype(np.int32),
-                sec[2 + 2 * k:])
-    if len(sec) < 2 + cs_len:
-        raise ValueError("truncated lane size table")
-    # max_out bounds a crafted low-entropy stream: the expected output is
-    # exactly 2k bytes, anything bigger is corrupt
-    st = native.decompress(sec[2: 2 + cs_len], k=2, max_out=2 * k + 8)
-    if len(st) != 2 * k:
-        raise ValueError("size table length mismatch")
-    return np.frombuffer(st, "<u2").astype(np.int32), sec[2 + cs_len:]
+        (cs_len,) = struct.unpack_from("<H", sec)
+        if cs_len == 0:
+            if len(sec) < 2 + 2 * k:
+                raise ValueError("truncated lane size table")
+            st = sec[2: 2 + 2 * k]
+            _count("size_table.decompress.raw")
+            return (np.frombuffer(st, "<u2").astype(np.int32),
+                    sec[2 + 2 * k:])
+        if len(sec) < 2 + cs_len:
+            raise ValueError("truncated lane size table")
+        # max_out bounds a crafted low-entropy stream: the expected output
+        # is exactly 2k bytes, anything bigger is corrupt
+        st = native.decompress(sec[2: 2 + cs_len], k=2, max_out=2 * k + 8)
+        if len(st) != 2 * k:
+            raise ValueError("size table length mismatch")
+        _count("size_table.decompress.coded")
+        return np.frombuffer(st, "<u2").astype(np.int32), sec[2 + cs_len:]
 
 
 def _frame_header(total_len, k, block_size, n_blocks, shared,
@@ -993,13 +1006,16 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
                 _decode_drain_pl(d, items, rl, pf, out, base)
         with _stage("ect.decompress.output"):
             if pf.crcs is not None:
-                for i in wanted:
-                    o = i * pf.block_size - base
-                    rl = min(pf.block_size, pf.total_len - i * pf.block_size)
-                    crc = zlib.crc32(out[o: o + rl]) & 0xFFFFFFFF
-                    if crc != int(pf.crcs[i]):
-                        raise ValueError(
-                            f"block {i}: crc mismatch (corrupt frame)")
+                with _stage("ect.decompress.crc"):
+                    for i in wanted:
+                        o = i * pf.block_size - base
+                        rl = min(pf.block_size,
+                                 pf.total_len - i * pf.block_size)
+                        crc = zlib.crc32(out[o: o + rl]) & 0xFFFFFFFF
+                        _count("crc.decompress", rl)
+                        if crc != int(pf.crcs[i]):
+                            raise ValueError(
+                                f"block {i}: crc mismatch (corrupt frame)")
             if cb_view is not None:
                 if cb_direct is None:  # unaligned range: one staging copy
                     np.frombuffer(cb_view, np.uint8, count=length)[:] = \

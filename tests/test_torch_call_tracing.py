@@ -7,10 +7,17 @@ fresh host bytes (``utils.profiling.counters``) equal the bytes their sites
 allocate, with ``tracemalloc``'s peak during a call never above the counted
 bytes plus the call's input, so that a site left uncounted shows.
 
+Frames that carry FLAG_CRC or FLAG_PACKED mark that work too, and only
+they: each crc pass is a range ``ect.<op>.crc`` and each lane-size table a
+range ``ect.<op>.size_table``, and the counters ``crc.<op>`` (the raw bytes
+checksummed) and ``size_table.<op>.coded`` / ``.raw`` (the per-lane blocks
+by the kind of their size table) hold exactly.
+
 The mesh is ``torch.device("cpu")`` n times (virtual ranks, the plain
 versions), on both repack routes. Tolerance: exact."""
 
 import contextlib
+import struct
 import tracemalloc
 from collections import Counter
 
@@ -64,6 +71,15 @@ CASES = {
     "mesh2": ("fse_tail", dict(lanes=True), 2, {}, None),
     "mesh4_fse": ("lanes", dict(lanes=False), 4, {}, None),
     "mesh4_device_repack": ("lanes", dict(lanes=True), 4, {}, True),
+    # FLAG_PACKED and FLAG_CRC together: the k=2 size-table codec and the
+    # crc passes, on both repack routes and over a range
+    "packed_crc": ("lanes", dict(lanes=True, bit_pack=True, checksum=True),
+                   1, {}, None),
+    "packed_crc_device_repack": ("lanes", dict(lanes=True, bit_pack=True,
+                                               checksum=True), 1, {}, True),
+    "packed_crc_range": ("fse_tail", dict(lanes=True, bit_pack=True,
+                                          checksum=True), 1,
+                         dict(start=17, length=3), None),
 }
 
 
@@ -207,9 +223,23 @@ def test_share_ranges_one_a_rank_a_round_in_rank_order(ranges, n, lanes):
 # --- the counters of fresh host bytes -------------------------------------------
 
 
-def _payload_len(pf, i) -> int:
+def _payload(pf, i) -> bytes:
     sec = pf.section(i)
-    return len(sec) if pf.shared else len(F._read_block_header(sec)[2])
+    return sec if pf.shared else F._read_block_header(sec)[2]
+
+
+def _lane_sizes(pf, payload, k) -> tuple[np.ndarray, int]:
+    """A per-lane payload's lane sizes in bits, and the bytes of its lane
+    streams (past the size table, packed or not), read without the
+    program's size-table functions."""
+    if not pf.packed:
+        return (np.frombuffer(payload[:2 * k], "<u2").astype(np.int32),
+                len(payload) - 2 * k)
+    (cs,) = struct.unpack_from("<H", payload)
+    st = (F.native.decompress(payload[2: 2 + cs], k=2) if cs
+          else payload[2: 2 + 2 * k])
+    return (np.frombuffer(st, "<u2").astype(np.int32),
+            len(payload) - 2 - (cs or 2 * k))
 
 
 def _shares_of(items, n):
@@ -249,8 +279,10 @@ def _expected_compress(data, frame, ckw, n, repack, discarded) -> Counter:
         elif mode == F.MODE_FSE_PL:
             if i >= full:  # the tail's rows are gathered on the host
                 want["gather"] += rl
-            if cpp:  # the group's buffer, then each block's bytes
-                want["merge"] += 2 * (_payload_len(pf, i) - 2 * k_i)
+            if cpp:  # the group's buffer (8 bytes of slack a block
+                # bit-packed), then each block's bytes
+                lanes = _lane_sizes(pf, _payload(pf, i), k_i)[1]
+                want["merge"] += 2 * lanes + (8 if pf.packed else 0)
     return +want
 
 
@@ -291,13 +323,16 @@ def _expected_decompress(frame, dkw, n, repack) -> Counter:
         for share in _shares_of(items, n):
             wd = -(-max(len(p) for p in share) // 4) + 2
             want["fse_words"] += len(share) * wd * 4
-    if repack is not True:
-        k = pf.k
-        for items in pl_groups.values():
-            for share in _shares_of(items, n):
-                want["payloads"] += sum(len(p) - 2 * k for p in share)
-                top = max(int(np.frombuffer(p[:2 * k], "<u2").max())
-                          for p in share)
+    k = pf.k
+    for items in pl_groups.values():
+        for share in _shares_of(items, n):
+            lanes = [_lane_sizes(pf, p, k) for p in share]
+            # the lane streams sliced past the size table: for the C++
+            # split, and on either route past a packed one
+            if pf.packed or repack is not True:
+                want["payloads"] += sum(n_bytes for _, n_bytes in lanes)
+            if repack is not True:
+                top = max(int(sz.max()) for sz, _ in lanes)
                 w = -(-(top // 32 + 3) // 16) * 16
                 want["split"] += len(share) * w * k * 4
     return +want
@@ -333,6 +368,107 @@ def test_host_bytes_counters_equal_what_their_sites_allocate(case):
     _decompress(frame, dkw, n, bytearray(len(data)))
     assert _counted(before, "decompress") == _expected_decompress(
         frame, dkw, n, repack)
+
+
+# --- the marks of FLAG_CRC and FLAG_PACKED -----------------------------------
+
+# each flag's range, by op, and the stage it nests in
+FLAG_RANGES = {("compress", "crc"): "ect.compress.frame",
+               ("compress", "size_table"): "ect.compress.assemble",
+               ("decompress", "crc"): "ect.decompress.output",
+               ("decompress", "size_table"): "ect.decompress.checks"}
+
+
+def _flag_counted(before: dict, op: str) -> Counter:
+    """The ``crc.<op>`` and ``size_table.<op>.*`` counters made since
+    ``before``."""
+    got = Counter()
+    for key, v in profiling.counters.items():
+        d = v - before.get(key, 0)
+        if d and (key == f"crc.{op}" or key.startswith(f"size_table.{op}.")):
+            got[key] = d
+    return got
+
+
+def _expected_flag_counts(frame, dkw, op: str) -> Counter:
+    """From the frame: the raw bytes of the blocks a call checksums (every
+    block on compress, the range's blocks on decompress) and its per-lane
+    blocks by the kind of their size table (k=2-coded or raw)."""
+    pf = F._parse_frame(frame)
+    bs = pf.block_size
+    lo, hi = 0, pf.n_blocks
+    if op == "decompress" and "start" in dkw:
+        lo = dkw["start"] // bs
+        hi = -(-(dkw["start"] + dkw["length"]) // bs)
+    want = Counter()
+    if pf.crcs is not None:
+        want[f"crc.{op}"] = min(hi * bs, pf.total_len) - lo * bs
+    if pf.packed:
+        for i in range(lo, hi):
+            if int(pf.modes[i]) == F.MODE_FSE_PL:
+                (cs,) = struct.unpack_from("<H", _payload(pf, i))
+                want[f"size_table.{op}.{'coded' if cs else 'raw'}"] += 1
+    return +want
+
+
+def _parents(log, name: str) -> list:
+    """The range that holds each entry of ``name`` in a ``Ranges`` log."""
+    stack, out = [], []
+    for what, n in log:
+        if what == "enter":
+            if n == name:
+                out.append(stack[-1] if stack else None)
+            stack.append(n)
+        else:
+            stack.pop()
+    return out
+
+
+def _flagged(name: str) -> bool:
+    ckw = CASES[name][1]
+    return bool(ckw.get("checksum") or ckw.get("bit_pack"))
+
+
+def _call_both(case, ranges):
+    """Compress and decompress case ``case`` once each; yield, per op, the
+    frame, the flag counters the call made and the ranges it entered."""
+    data, given, ckw, dkw, n, _ = case
+    frame = None
+    for op in ("compress", "decompress"):
+        before = dict(profiling.counters)
+        ranges.log.clear()
+        if op == "compress":
+            frame = F.compress(given, **ckw)
+        else:
+            _decompress(frame, dkw, n, bytearray(len(data)))
+        yield op, frame, _flag_counted(before, op), list(ranges.log)
+
+
+@pytest.mark.parametrize("case", sorted(CASES), indirect=True)
+def test_flag_ranges_and_counters_hold_exactly(case, ranges):
+    """``crc.<op>`` counts the raw bytes of the blocks checksummed,
+    ``size_table.<op>.coded`` + ``.raw`` the per-lane blocks of a packed
+    frame; each crc pass is one ``ect.<op>.crc`` range and each size table
+    one ``ect.<op>.size_table`` range, nested in the stage that runs it."""
+    dkw = case[3]
+    for op, frame, got, log in _call_both(case, ranges):
+        want = _expected_flag_counts(frame, dkw, op)
+        assert got == want, op
+        tables = sum(v for key, v in want.items()
+                     if key.startswith("size_table."))
+        for mark, n_ranges in (("crc", int(f"crc.{op}" in want)),
+                               ("size_table", tables)):
+            held_by = _parents(log, f"ect.{op}.{mark}")
+            assert held_by == [FLAG_RANGES[op, mark]] * n_ranges, (op, mark)
+
+
+@pytest.mark.parametrize("case", sorted(c for c in CASES if not _flagged(c)),
+                         indirect=True)
+def test_a_frame_without_the_flags_makes_none_of_their_marks(case, ranges):
+    for op, frame, got, log in _call_both(case, ranges):
+        assert not got, op
+        assert not [n for _, n in log
+                    if n.endswith((".crc", ".size_table"))], op
 
 
 def test_a_caller_buffer_counts_no_output_bytes(monkeypatch):
