@@ -446,20 +446,23 @@ def phase_kernels():
 
 def phase_device_host():
     """D1-D3 against their plain versions on the card and against the
-    port's C++ host library, exactly, and D6 against its plain version
-    where histograms break (``tools.device_host``). Returns the largest
-    difference measured, of the repack, of the tables and of the
-    histogram."""
+    port's C++ host library, exactly, D6 against its plain version where
+    histograms break, and the crc kernel against ``zlib.crc32`` and its
+    plain version at the parity shape, at odd lengths and in the two-piece
+    form (``tools.device_host``). Returns the largest difference measured,
+    of the repack, of the tables, of the histogram and of the crc."""
     from entropy_coders_tpu_torch.tools import device_host as DH
 
     t0 = time.perf_counter()
     repack = DH.check_repack()
     tables = DH.check_tables()
     histogram = DH.check_histogram()
+    crc = DH.check_crc()
     emit("device_host", repack=repack, tables=tables, histogram=histogram,
-         seconds=time.perf_counter() - t0)
+         crc=crc, seconds=time.perf_counter() - t0)
     return {"repack": repack["max_abs_err"], "tables": tables["max_abs_err"],
-            "histogram": histogram["max_abs_err"]}
+            "histogram": histogram["max_abs_err"],
+            "crc": crc["max_abs_err"]}
 
 
 def phase_goldens(T, gg):
@@ -489,27 +492,32 @@ def phase_goldens(T, gg):
 
 
 def _launch_counts_all():
-    """The launch counts of B1, B2, D1-D3, D4/D5 and D6 as they stand."""
+    """The launch counts of B1, B2, D1-D3, D4/D5, D6 and the crc as they
+    stand."""
     from entropy_coders_tpu_torch.ops import coder as C
+    from entropy_coders_tpu_torch.ops import crc as K
     from entropy_coders_tpu_torch.ops import histogram as H
     from entropy_coders_tpu_torch.ops import pl_coder as PL
 
     return {"decode": PL.DECODE_LAUNCHES, "encode": PL.ENCODE_LAUNCHES,
             **_device_host_counts(), "fse_encode": C.ENCODE_LAUNCHES,
-            "fse_decode": C.DECODE_LAUNCHES, "histogram": H.HIST_LAUNCHES}
+            "fse_decode": C.DECODE_LAUNCHES, "histogram": H.HIST_LAUNCHES,
+            "crc": K.CRC_LAUNCHES}
 
 
 @contextlib.contextmanager
 def plain_cores_on_cuda(counts: dict):
     """While open, every call of the shared-stream cores' plain versions
-    (``ops.coder.encode_core_ref``/``decode_core_ref``) and of D6's
-    (``ops.histogram.histogram_blocks_ref``, the ``bincount`` route) on
-    CUDA tensors adds one to ``counts``: the wrappers must never take them
-    there."""
+    (``ops.coder.encode_core_ref``/``decode_core_ref``), of D6's
+    (``ops.histogram.histogram_blocks_ref``, the ``bincount`` route) and of
+    the crc's (``ops.crc.crc32_blocks_ref``) on CUDA tensors adds one to
+    ``counts``: the wrappers must never take them there."""
     from entropy_coders_tpu_torch.ops import coder as C
+    from entropy_coders_tpu_torch.ops import crc as K
     from entropy_coders_tpu_torch.ops import histogram as H
 
-    saved = C.encode_core_ref, C.decode_core_ref, H.histogram_blocks_ref
+    saved = (C.encode_core_ref, C.decode_core_ref, H.histogram_blocks_ref,
+             K.crc32_blocks_ref)
 
     def counted(name, fn):
         def call(first, *args, **kwargs):
@@ -521,10 +529,12 @@ def plain_cores_on_cuda(counts: dict):
     C.encode_core_ref = counted("encode_core_ref", saved[0])
     C.decode_core_ref = counted("decode_core_ref", saved[1])
     H.histogram_blocks_ref = counted("histogram_blocks_ref", saved[2])
+    K.crc32_blocks_ref = counted("crc32_blocks_ref", saved[3])
     try:
         yield counts
     finally:
-        C.encode_core_ref, C.decode_core_ref, H.histogram_blocks_ref = saved
+        (C.encode_core_ref, C.decode_core_ref, H.histogram_blocks_ref,
+         K.crc32_blocks_ref) = saved
 
 
 def roundtrip(T, data, **kw):
@@ -570,6 +580,11 @@ FSE_MAIN_PATH = 1 + 2 * sum(FSE_LAUNCHES.values())
 # compresses (each has a full block), the main path's 11
 D6_LAUNCHES = {"throughput": 1, "parity": 1, "default": 1}
 D6_MAIN_PATH = 5 + 2 * sum(D6_LAUNCHES.values())
+# crc launches on the main path: the two golden frames with crcs
+# (frame_pl_crc, frame_packed_crc), one a compress (one share of full
+# blocks) and one a decompress (one per-lane group of one chunk); the three
+# points' frames carry no crc
+CRC_MAIN_PATH = 4
 
 
 def check_d3_launches(name, launches):
@@ -1539,6 +1554,10 @@ def phase_timing(data):
     # patterns side by side
     out["histogram"] = DH.histogram_shapes(data)
     emit("timing_histogram", **out["histogram"])
+    # the crc kernel at its launch shapes beside its plain version and
+    # zlib.crc32 on the host
+    out["crc"] = DH.crc_shapes(data)
+    emit("timing_crc", **out["crc"])
     return out
 
 
@@ -2568,7 +2587,7 @@ def sharded_shared_stream(T, P, data, virtual8) -> dict:
               "tables": 2 * shares, "fse_encode": shares,
               "fse_decode": shares,
               "histogram": len(TF._shares(len(data) // knobs["block_size"],
-                                          virtual8))}
+                                          virtual8)), "crc": 0}
     check(got == expect, f"sharded MODE_FSE: a round trip on 8 ranks "
           f"launched {got}, expected {expect}")
     check(not plain, f"sharded MODE_FSE: plain cores on CUDA: {plain}")
@@ -3565,7 +3584,7 @@ def ss_point(T, data, name: str, lat: dict, mhz: float) -> dict:
     got = times["launches"]
     want = {"decode": 0, "encode": 0, "merge": 0, "split": 0,
             "tables": 2 * groups, "fse_encode": groups, "fse_decode": groups,
-            "histogram": 1}
+            "histogram": 1, "crc": 0}
     check(got == want, f"{name}: a round trip launched {got}, expected "
           f"{want}")
     shape = ss_time_shape(inp, lat, mhz, SS_PLAIN_BLOCKS[name])
@@ -3628,6 +3647,7 @@ def run_single(T, PL, gg, data, card):
     D1-D3's largest differences (phase ``device_host`` and the timings)
     and D3's timings (``device_host.TABLE_SHAPES``)."""
     from entropy_coders_tpu_torch.ops import coder as C
+    from entropy_coders_tpu_torch.ops import crc as K
     from entropy_coders_tpu_torch.ops import device_repack as DR
     from entropy_coders_tpu_torch.ops import histogram as H
     from entropy_coders_tpu_torch.ops import tables as TB
@@ -3645,6 +3665,7 @@ def run_single(T, PL, gg, data, card):
     C.ENCODE_LAUNCHES = 0
     C.DECODE_LAUNCHES = 0
     H.HIST_LAUNCHES = 0
+    K.CRC_LAUNCHES = 0
     plain_on_cuda = {}
     with plain_cores_on_cuda(plain_on_cuda):
         phase_goldens(T, gg)
@@ -3673,6 +3694,9 @@ def run_single(T, PL, gg, data, card):
     check(launches["histogram"] == D6_MAIN_PATH,
           f"{launches['histogram']} D6 launches on the main path, expected "
           f"{D6_MAIN_PATH}")
+    check(launches["crc"] == CRC_MAIN_PATH,
+          f"{launches['crc']} crc launches on the main path, expected "
+          f"{CRC_MAIN_PATH}")
     check(not plain_on_cuda, f"the main path ran the shared-stream or "
           f"histogram plain versions on CUDA tensors: {plain_on_cuda}")
     emit("launches", **launches, plain_cores_on_cuda=0)
@@ -3729,7 +3753,8 @@ def run_parallel(T, PL, R, data):
     phase_sharded(T, data, single)
     par = {"ring": R.RING_LAUNCHES,
            **{k: v - before[k] for k, v in _launch_counts_all().items()}}
-    check(min(par.values()) > 0,
+    # phase sharded writes no frame with crcs: the crc kernel may not run
+    check(min(v for k, v in par.items() if k != "crc") > 0,
           f"a kernel of the multi-device path never launched: {par}")
     emit("launches_parallel", **par)
     phase_multihost(expected)
@@ -3902,6 +3927,27 @@ def _histogram_row(src, launches, hist, checked):
             "patterns_kernel_ms": hist["patterns"]}
 
 
+def _crc_row(src, launches, crc, checked):
+    """The crc kernel in the kernels line: a wrapper call at the parity
+    cell's compress shape (8 blocks of 16 MiB) beside its two kernels
+    alone, the plain version on the same CUDA tensors, ``zlib.crc32`` on
+    the host (the pass it replaces) and the byte bound; every
+    ``device_host.CRC_SHAPES`` shape beside it. ``max_abs_err`` counts the
+    rows that differ from ``zlib.crc32`` over phase ``device_host``'s cases
+    (``checked``)."""
+    keys = ("B", "n1", "n2", "units", "grid", "ms", "kernel_ms",
+            "chunks_ms", "host_ms", "plain_ms", "zlib_ms", "bound_ms",
+            "share_of_bound")
+    top = crc["parity_compress"]
+    return {"name": "crc32", "route": "cuda", "source": src,
+            "replaces": None, "launches": launches, "max_abs_err": checked,
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "zlib_host_ms": top["zlib_ms"],
+            "kernel_ms": top["kernel_ms"],
+            "shapes": {s: {k: r[k] for k in keys} for s, r in crc.items()}}
+
+
 def print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,
                   ring_peer, par, layouts):
     """The line before the last: every kernel with its main-path launches,
@@ -3984,6 +4030,8 @@ def print_kernels(launches, worst, timing, dh_err, ring_err, ring_full,
                            launches["fse_decode"], timing["shared_stream"]),
         _histogram_row(f"{src}/histogram.cu", launches["histogram"],
                        timing["histogram"], dh_err["histogram"]),
+        _crc_row(f"{src}/crc32.cu", launches["crc"], timing["crc"],
+                 dh_err["crc"]),
     ]}), flush=True)
 
 

@@ -22,7 +22,12 @@ Pipeline per frame:
   bit-packed block's lane-size table ``ect.<op>.size_table``), so a trace
   splits the host's time by stage. The calls count themselves, the bytes
   of the fresh host buffers they make, the bytes they checksum and the
-  size tables they code (``utils.profiling.counters``).
+  size tables they code (``utils.profiling.counters``). On frames with
+  crcs the blocks are checksummed where they lie (the crc kernel,
+  ``ops.crc``): each share's full blocks behind its encode dispatch, each
+  decoded per-lane chunk behind B1; the host writes or compares 4 bytes a
+  block, and checksums only the blocks it holds alone (a compress's ragged
+  tail; RAW, RLE and MODE_FSE blocks on decompress).
 
 ``device`` selects where the block work runs. It defaults to ``"cuda"`` and
 raises when CUDA is unavailable; ``device="cpu"`` runs the kernels' plain
@@ -73,6 +78,7 @@ from .normalize import normalize_batch
 from .ops import device_repack as DR
 from .ops import pl_coder as PL
 from .ops.coder import blocks_to_syms, decode_core, encode_core, encode_layout
+from .ops.crc import crc32_blocks
 from .ops.histogram import histogram_blocks
 from .ops.unsigned import resolve_device, to_device, to_numpy
 from .utils.profiling import count as _count
@@ -292,6 +298,17 @@ def compress(
 
     nsym = blocks = None
     placed = []
+    crc_pending = []  # (first block, its share's crcs later) a share
+
+    def queue_crcs():
+        # each share's crc kernel over its device copy, behind the share's
+        # encode dispatch (nothing waits behind it on the card), and the
+        # d2h of its 4 bytes a block
+        if checksum:
+            for (rank, *_), (lo, t) in zip(shares, placed):
+                with _share("compress", "dispatch", rank):
+                    crc_pending.append((lo, _host_later(crc32_blocks(t))))
+
     if full:
         blocks = data[: full * block_size].reshape(full, block_size)
         shares = _shares(full, mesh)
@@ -353,7 +370,10 @@ def compress(
                         counts[codable], block_size, table_log)
             _encode_group(blocks, norm_tables, log2_arr, k, shared_table,
                           sections, modes, codable, mesh, lanes=lanes,
-                          placed=placed, bit_pack=bit_pack)
+                          placed=placed, bit_pack=bit_pack,
+                          on_dispatched=queue_crcs)
+        else:
+            queue_crcs()
 
     if full * block_size < total_len:  # ragged tail block
         with _stage("ect.compress.tail"):
@@ -392,17 +412,24 @@ def compress(
         parts.append(entries.astype("<u4").tobytes())
         if checksum:
             with _stage("ect.compress.crc"):
-                crcs = np.array(
-                    [zlib.crc32(data[i * block_size:][:rl]) & 0xFFFFFFFF
-                     for i, rl in enumerate(raw_lens)], np.uint32)
+                # the full blocks' crcs from the card; the ragged tail
+                # block, never a row there, on the host
+                crcs = np.empty(n_blocks, np.uint32)
+                for lo, get in crc_pending:
+                    got = get()
+                    crcs[lo: lo + len(got)] = got
+                for i in range(full, n_blocks):
+                    crcs[i] = zlib.crc32(data[i * block_size:][:raw_lens[i]])
                 parts.append(crcs.astype("<u4").tobytes())
             _count("crc.compress", total_len)
+            if full:
+                _count("crc.compress.device", full * block_size)
         parts.extend(sections)
         out = b"".join(parts)
         _count("host_bytes.compress.frame", len(out))
     with _stage("ect.compress.release"):
         # the call's host buffers go inside its range, not after it
-        del data, blocks, placed, sections, parts
+        del data, blocks, placed, sections, parts, crc_pending
     return out
 
 
@@ -569,7 +596,7 @@ def _rows_on(dev, ids, blocks, placed):
 
 def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
                   modes, block_ids, mesh, lanes=False, placed=(),
-                  bit_pack=False):
+                  bit_pack=False, on_dispatched=None):
     """Encode equal-size blocks, grouped by effective table log: row j of
     ``norm_tables``/``log2_arr`` codes block ``block_ids[j]`` of the host
     array ``blocks`` into ``sections[block_ids[j]]``. Each group splits into
@@ -578,11 +605,15 @@ def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
     where they hold the share); the others take the shared-stream path
     (ops.coder). Either way every share of a group is dispatched on its own
     device before the first is drained, and the drains run in block order.
-    The groups run in turn, as in the JAX package."""
+    The groups run in turn, as in the JAX package. ``on_dispatched`` (no
+    arguments) is called once, when every share of the last group is
+    dispatched and none drained."""
     n = blocks.shape[1]
     layout = None  # shared-stream emission layout, built on first use
+    groups = np.unique(log2_arr)
 
-    for l2 in np.unique(log2_arr):
+    for l2 in groups:
+        last = on_dispatched is not None and l2 == groups[-1]
         rows = np.flatnonzero(log2_arr == l2)
         shares = [(rank, dev, rows[lo:hi]) for rank, dev, lo, hi in
                   _shares(len(rows), mesh)]
@@ -593,6 +624,8 @@ def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
                     dispatched.append(_encode_dispatch_pl(
                         _rows_on(dev, block_ids[r], blocks, placed),
                         norm_tables[r], int(l2), k, bit_pack=bit_pack))
+            if last:
+                on_dispatched()
             for (rank, _, r), d in zip(shares, dispatched):
                 with _share("compress", "drain", rank):
                     _encode_drain_pl(d, norm_tables[r], int(l2),
@@ -607,6 +640,8 @@ def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
                 _count("host_bytes.compress.gather", rows.nbytes)
                 dispatched.append(_encode_dispatch_fse(
                     rows, norm_tables[r], int(l2), k, dev, layout))
+        if last:
+            on_dispatched()
         # every share's bit counts are read and the d2h of its words queued
         # before the first share's words are waited for, so that one
         # share's assembly overlaps the copies of the shares after it
@@ -1004,18 +1039,31 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
         for (items, rl, _, _, rank), d in zip(pl_calls, dispatched):
             with _share("decompress", "drain", rank):
                 _decode_drain_pl(d, items, rl, pf, out, base)
+        crcs = {}  # block -> its crc as the device computed it
+        for d in dispatched:
+            crcs.update(d[2])
         with _stage("ect.decompress.output"):
             if pf.crcs is not None:
                 with _stage("ect.decompress.crc"):
+                    # the per-lane blocks' crcs came back with their bytes;
+                    # the other blocks are checksummed on the host
+                    counted = on_card = 0
                     for i in wanted:
-                        o = i * pf.block_size - base
                         rl = min(pf.block_size,
                                  pf.total_len - i * pf.block_size)
-                        crc = zlib.crc32(out[o: o + rl]) & 0xFFFFFFFF
-                        _count("crc.decompress", rl)
+                        counted += rl
+                        crc = crcs.get(i)
+                        if crc is None:
+                            o = i * pf.block_size - base
+                            crc = zlib.crc32(out[o: o + rl])
+                        else:
+                            on_card += rl
                         if crc != int(pf.crcs[i]):
                             raise ValueError(
                                 f"block {i}: crc mismatch (corrupt frame)")
+                _count("crc.decompress", counted)
+                if on_card:
+                    _count("crc.decompress.device", on_card)
             if cb_view is not None:
                 if cb_direct is None:  # unaligned range: one staging copy
                     np.frombuffer(cb_view, np.uint8, count=length)[:] = \
@@ -1036,7 +1084,7 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
         # the call's host buffers, and the loops' last references to them,
         # go inside its range, not after it
         del out, cb_direct, groups, pl_groups, fse_calls, pl_calls
-        del fse_dispatched, dispatched, on_dev
+        del fse_dispatched, dispatched, on_dev, crcs
         sec = payload = items = d = None
     return result
 
@@ -1052,14 +1100,17 @@ def _decode_dispatch_pl(items, raw_len, log2, pf, dev, span=None):
     on ``dev``: the lane sizes and framing are checked on the host (a
     corrupt block raises ValueError here, before anything of this call is
     queued), the lane split fills the (B, W, k) word layout, and B1 (its
-    plain version on CPU) decodes ~64 MiB of raw bytes per call. ``items``
+    plain version on CPU) decodes ~64 MiB of raw bytes per call; on a frame
+    with crcs each call's blocks are checksummed behind it, where they were
+    decoded (``ops.crc``), and their crcs come back with them. ``items``
     are (block, payload, table, the payload's offset in the frame). With
     ``span`` (a uint8 tensor on ``dev`` holding the frame from byte
     ``span[1]`` on, past every item's payload) the split runs on the device
     (D2) from those bytes; without it the C++ split runs on the host and
     the words are copied. The group's decode tables are built once, before
     the first chunk, and held until the last is collected. Returns what
-    ``_decode_drain_pl`` takes."""
+    ``_decode_drain_pl`` takes, with the dict (block -> crc) its drain
+    fills on a frame with crcs."""
     k = pf.k
     if not (TABLE_LOG_MIN <= log2 <= TABLE_LOG_MAX):
         raise ValueError(f"corrupt frame: table log {log2} out of range")
@@ -1145,18 +1196,22 @@ def _decode_dispatch_pl(items, raw_len, log2, pf, dev, span=None):
                 words = to_device(words, dev, non_blocking=True)
             handles.append((j0, PL.decode_lanes_norm(
                 words, sizes_dev, norm_tables[j0: j0 + chunk], k=k, L=log2, R=R,
-                lazy=True, tables=PL.table_rows(tables, j0, j0 + chunk))))
-    return tables, handles
+                lazy=True, tables=PL.table_rows(tables, j0, j0 + chunk),
+                crc=pf.crcs is not None)))
+    return tables, handles, {}
 
 
 def _decode_drain_pl(dispatched, items, raw_len, pf, out, out_base):
     """Collect the chunks ``_decode_dispatch_pl`` queued, in order (a lane
     cursor not drained raises ValueError), and write their blocks back
-    into ``out``."""
-    _tables, handles = dispatched
+    into ``out``; on a frame with crcs, each block's crc as the device
+    computed it goes into the dispatch's dict."""
+    _tables, handles, crcs = dispatched
     for j0, collect in handles:
         with _stage("ect.decompress.collect"):
-            syms, finals = collect()
+            syms, finals, *got = collect()
+            for jj, crc in enumerate(got[0] if got else ()):
+                crcs[items[j0 + jj][0]] = int(crc)
         with _stage("ect.decompress.write_back"):
             n_syms = syms.shape[1] * syms.shape[2]
             for jj in range(syms.shape[0]):

@@ -99,6 +99,13 @@ _SIGNATURES = {
     "ect_histogram": [_P, _LL, _I, _I, _I, _I, _I, _P, _P],
     # dev, threads -> CTAs resident on device dev at once (or -error)
     "ect_histogram_max_ctas": [_I, _I],
+    # p1, stride1, n1, p2, stride2, n2, B, seg, U, grid, threads, partial,
+    # out, stream (crc32.cu)
+    "ect_crc32": [_P, _LL, _LL, _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _P,
+                  _P],
+    # dev, threads -> CTAs of the crc's chunk kernel resident at once (or
+    # -error)
+    "ect_crc32_max_ctas": [_I, _I],
 }
 
 _lib = None

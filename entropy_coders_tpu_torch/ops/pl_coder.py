@@ -58,6 +58,7 @@ from torch.profiler import record_function
 from .. import native
 from ..kernels.launch import check as _check, launch as _launch
 from . import tables as TB
+from .crc import crc32_blocks
 from .unsigned import (as_int64, entry_device, entry_tensor, int64_to_u32,
                        signed_view, to_device, to_numpy)
 
@@ -350,7 +351,7 @@ def _d2h(tensors, after: torch.cuda.Event, role: int):
 
 def decode_lanes_norm(words, sizes, norm_tables, *, k: int, L: int, R: int,
                       lazy: bool = False, host_tables: bool | None = None,
-                      tables: LaneTables | None = None):
+                      tables: LaneTables | None = None, crc: bool = False):
     """Batched decode from lane words and the (B, 256) int32 normalized
     histograms (all sharing table log ``L``), the decode half of the tables
     built by ``tables_from_norm`` on the words' device (``host_tables``
@@ -368,27 +369,35 @@ def decode_lanes_norm(words, sizes, norm_tables, *, k: int, L: int, R: int,
     returns host numpy (syms, finals). On the CPU the plain version has
     already run and ``collect`` returns its results. Callers dispatch
     every chunk and then collect them in order (``frame._decode_dispatch_pl``),
-    so every chunk's words and outputs are on the card at once."""
+    so every chunk's words and outputs are on the card at once.
+
+    ``crc=True`` also checksums each decoded block where it lies, its
+    symbols then its finals (``ops.crc.crc32_blocks``, behind B1), and
+    appends the (B,) uint32 crc32s to what is returned; lazily, their d2h
+    goes with the outputs'."""
     if words.dim() != 3 or words.shape[2] != k:
         raise ValueError("k must match words (B, W, k)")
     if tables is None:
         tables = tables_from_norm(norm_tables, L, words.device, host_tables,
                                   half="decode")
     syms, finals, cursors = decode_call(words, sizes, tables.dec, L=L, R=R)
+    outs = [syms, finals]
+    if crc:
+        outs.append(crc32_blocks(syms.reshape(syms.shape[0], -1), finals))
     if not lazy:
         if bool((cursors != 0).any()):
             raise ValueError("corrupt stream: lane cursor not drained")
-        return syms, finals
+        return tuple(outs)
     wait = lambda: None  # noqa: E731 - the plain version has run
     if words.device.type == "cuda":
-        (syms, finals, cursors), wait = _d2h(
-            [syms, finals, cursors], _launched(words.device), 0)
+        (*outs, cursors), wait = _d2h([*outs, cursors],
+                                      _launched(words.device), 0)
 
     def collect():
         wait()
         if cursors.numpy().any():
             raise ValueError("corrupt stream: lane cursor not drained")
-        return syms.numpy(), finals.numpy()
+        return tuple(map(to_numpy, outs))
 
     return collect
 

@@ -8,7 +8,7 @@ and the C++ calls; the per-block histogram (``ops.histogram``,
 (``HIST_SHAPES``) beside its bound and the ``bincount`` route.
 
     python -m entropy_coders_tpu_torch.tools.device_host [--old DIR]
-        [--rounds N] [--histogram]
+        [--rounds N] [--histogram] [--crc]
 
 prints one JSON line per check and per launch shape. ``chip_smoke.py``
 drives the same functions in its phase ``device_host``. At each shape a
@@ -46,6 +46,13 @@ plain version on the same tensor (the offset ``bincount`` route, which is
 also its ``library_ms``) in turns, and the byte bound; then the kernel alone
 on each pattern at the throughput shape.
 
+The crc kernel (``--crc`` runs it alone) is checked against
+``zlib.crc32`` and its plain version (``check_crc``: the parity cell's
+shape, odd lengths, storage offsets 1..15, the two-piece form of a decoded
+block; B = 0 and no bytes give zeros without a launch) and timed at every
+``CRC_SHAPES`` shape: a wrapper call, its two kernels alone (profiler), the
+plain version and ``zlib.crc32`` on the host in turns, and the byte bound.
+
 A bound is the bytes the function must move over 3.35 TB/s (an H100 SXM's
 published peak): each input read once, each output written once, counted
 from this run's sizes. Merge: the payload read from the words and written
@@ -65,6 +72,7 @@ import json
 import statistics
 import subprocess
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -76,6 +84,7 @@ from ..normalize import normalize_batch
 from ..ops import device_repack as DR
 from ..ops import pl_coder as PL
 from ..ops import tables as TB
+from ..ops import crc as K
 from ..ops import histogram as H
 from ..ops.histogram import histogram_blocks
 from ..ops.unsigned import to_device, to_numpy
@@ -871,6 +880,148 @@ def histogram_shapes(data: np.ndarray, device="cuda") -> dict:
     return out
 
 
+# --- the crc kernel ------------------------------------------------------------
+
+# (B, n1, n2) launch shapes: the parity cell's compress (its eight 16 MiB
+# blocks) and one decode chunk (four blocks: R * k symbols, then k finals);
+# the default point's 1,024 blocks of 128 KiB; one 4 KiB block
+CRC_SHAPES = {"parity_compress": (8, 16 << 20, 0),
+              "parity_decode_chunk": (4, (16 << 20) - 8192, 8192),
+              "default": (1024, 128 << 10, 0), "graft": (1, 4096, 0)}
+
+
+def crc_rows(B: int, n1: int, n2: int = 0, device="cuda", seed: int = 0xC3):
+    """(rows (B, n1), tail (B, n2) or None) of uniform bytes on
+    ``device``, made from ``seed``."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rows = torch.randint(0, 256, (B, n1), generator=g, dtype=torch.uint8)
+    tail = (torch.randint(0, 256, (B, n2), generator=g, dtype=torch.uint8)
+            if n2 else None)
+    return rows.to(device), None if tail is None else tail.to(device)
+
+
+def zlib_crcs(rows: torch.Tensor, tail=None) -> np.ndarray:
+    """``zlib.crc32`` of each row (then its tail) on the host."""
+    a = rows.cpu().numpy()
+    b = None if tail is None else tail.cpu().numpy()
+    return np.array([zlib.crc32(b[i], zlib.crc32(a[i])) if b is not None
+                     else zlib.crc32(a[i]) for i in range(len(a))], np.uint32)
+
+
+def _crc_diff(got: torch.Tensor, want: np.ndarray) -> int:
+    """Rows whose crc differs."""
+    return int((to_numpy(got) != want).sum())
+
+
+def check_crc(device="cuda") -> dict:
+    """The crc kernel against ``zlib.crc32`` and its plain version on the
+    same tensors of ``device``, exactly: the parity cell's compress shape;
+    n in {1, 15, 16, 17, 4,095, 4,097, 1 MiB + 3} at B in {1, 3}; the first
+    row of a view at every storage offset 1..15; the two-piece form at one
+    decode chunk of the parity cell and at odd lengths; B = 0 and no bytes
+    (zeros, no launch). Each other case launches the kernel exactly
+    once."""
+    cases = [("parity_8x16MiB", *crc_rows(8, 16 << 20, 0, device))]
+    cases += [(f"uniform_{B}x{n}", *crc_rows(B, n, 0, device, seed=B * n))
+              for n in (1, 15, 16, 17, 4095, 4097, (1 << 20) + 3)
+              for B in (1, 3)]
+    flat, _ = crc_rows(1, 3 * 4099 + 16, 0, device)
+    cases += [(f"offset_{off}", flat[0, off: off + 3 * 4099].view(3, 4099),
+               None) for off in range(1, 16)]
+    cases += [(f"pieces_{B}x{n1}+{n2}", *crc_rows(B, n1, n2, device,
+                                                  seed=n1 + n2))
+              for B, n1, n2 in ((4, (16 << 20) - 8192, 8192), (3, 17, 5),
+                                (2, 0, 100), (2, 100_003, 300_007))]
+    held = Held()
+    for name, rows, tail in cases:
+        before = K.CRC_LAUNCHES
+        got = K.crc32_blocks(rows, tail)
+        require(K.CRC_LAUNCHES == before + 1,
+                f"{name}: {K.CRC_LAUNCHES - before} crc launches")
+        want = zlib_crcs(rows, tail)
+        held(_crc_diff(got, want), f"{name}: crc kernel != zlib.crc32")
+        if rows.numel() + (0 if tail is None else tail.numel()) <= 1 << 24:
+            held(_crc_diff(K.crc32_blocks_ref(rows, tail), want),
+                 f"{name}: plain version != zlib.crc32")
+    held(_crc_diff(K.crc32_blocks_ref(cases[0][1]), zlib_crcs(cases[0][1])),
+         "parity: plain version != zlib.crc32")
+    for shape in ((0, 16), (3, 0)):
+        before = K.CRC_LAUNCHES
+        got = K.crc32_blocks(torch.empty(shape, dtype=torch.uint8,
+                                         device=device))
+        require(K.CRC_LAUNCHES == before and got.shape == (shape[0],)
+                and not bool(got.view(torch.int32).any()),
+                f"{shape}: not zeros without a launch")
+    return {"cases": len(cases) + 2, "max_abs_err": held.worst}
+
+
+def crc_row(name: str, rows: torch.Tensor, tail=None,
+            rounds: int = 2) -> dict:
+    """The crc kernel at one launch shape: equal to ``zlib.crc32``; a
+    wrapper call (CUDA events over queued calls behind a spin), the kernels
+    alone (the profiler's device time of one call: the chunk kernel and the
+    join, no memset or fill), the plain version on the same tensors and
+    ``zlib.crc32`` on host copies (the host pass the kernel replaces, the
+    yardstick) in turns, and the byte bound: the rows read once, 4 bytes a
+    row written."""
+    B, n1 = rows.shape
+    n2 = 0 if tail is None else tail.shape[1]
+    require(_crc_diff(K.crc32_blocks(rows, tail), zlib_crcs(rows, tail))
+            == 0, f"{name}: crc kernel != zlib.crc32")
+    host = np.ascontiguousarray(torch.cat(
+        [rows, tail], 1).cpu().numpy() if n2 else rows.cpu().numpy())
+
+    def call():
+        K.crc32_blocks(rows, tail)
+
+    def plain():
+        K.crc32_blocks_ref(rows, tail)
+
+    def on_host():
+        for r in host:
+            zlib.crc32(r)
+
+    reps = 20 if B * (n1 + n2) < 1 << 28 else 4
+    ms, plain_ms, zlib_ms = [], [], []
+    for _ in range(rounds):  # kernel, plain, zlib, zlib, plain, kernel
+        ms.append(cuda_ms(call, runs=5, reps=reps,
+                          hold_cycles=HOLD_CYCLES)[0])
+        plain_ms.append(cuda_ms(plain, runs=3, warmup=1)[0])
+        zlib_ms.append(_host_ms(on_host))
+    ops = device_ops(call)
+    U = K.units(n1, n2)
+    row = {"B": B, "n1": n1, "n2": n2, "units": U,
+           "grid": min(B * U, K._CTAS[rows.device.index]),
+           "threads": K.THREADS, "seg": K.SEG, "ms": min(ms),
+           "ms_turns": ms, "host_ms": host_ms(call),
+           "device_ops": check_ops(ops, f"{name} crc")}
+    require(row["device_ops"]["kernels"] == 2,
+            f"{name}: the crc issued {row['device_ops']['kernels']} kernels "
+            "a call")
+    row["kernel_ms"] = kernel_ms(ops)
+    row["chunks_ms"] = kernel_ms(ops, "crc32_chunks")
+    row["plain_ms"] = min(plain_ms)
+    row["plain_ms_turns"] = plain_ms
+    row["zlib_ms"] = min(zlib_ms)
+    row["zlib_ms_turns"] = zlib_ms
+    row.update(_bound(B * (n1 + n2) + 4 * B))
+    row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+    return row
+
+
+def crc_shapes(data: np.ndarray, device="cuda") -> dict:
+    """``crc_row`` at every ``CRC_SHAPES`` shape on ``data`` (cycled where
+    it is shorter)."""
+    out = {}
+    for name, (B, n1, n2) in CRC_SHAPES.items():
+        flat = torch.from_numpy(np.resize(data, B * (n1 + n2))).to(device)
+        rows = flat[: B * n1].view(B, n1)
+        tail = flat[B * n1:].view(B, n2) if n2 else None
+        out[name] = crc_row(name, rows, tail)
+        del flat, rows, tail
+    return out
+
+
 # --- another commit's D3, B1 and layout kernels ------------------------------
 
 
@@ -1013,6 +1164,9 @@ def main(argv=None) -> int:
                     help="D3 at every cluster and CTA size, then stop")
     ap.add_argument("--histogram", action="store_true",
                     help="D6's checks and launch shapes, then stop")
+    ap.add_argument("--crc", action="store_true",
+                    help="the crc kernel's checks and launch shapes, then "
+                    "stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("device_host checks and times kernels on a CUDA "
@@ -1022,6 +1176,11 @@ def main(argv=None) -> int:
               flush=True)
         for name, row in histogram_shapes(gen_sequence(0.2, 128 << 20)).items():
             print(json.dumps({"shape": name, "histogram": row}), flush=True)
+        return 0
+    if args.crc:
+        print(json.dumps({"check": "crc", **check_crc()}), flush=True)
+        for name, row in crc_shapes(gen_sequence(0.2, 128 << 20)).items():
+            print(json.dumps({"shape": name, "crc": row}), flush=True)
         return 0
     if args.sweep:
         for name, row in tables_sweep(gen_sequence(0.2, 128 << 20)).items():

@@ -15,7 +15,9 @@ shared-stream share). A buffer that is reused, or given by the caller
 torch's caching host allocator keeps between calls.
 ``decompress.in_place`` counts the decompresses decoded straight into the
 ``bytes`` they return. Frames with per-block crc32s count the raw bytes
-checksummed (``crc.compress``, ``crc.decompress``); bit-packed frames count
+checksummed (``crc.compress``, ``crc.decompress``) and, of those, the bytes
+checksummed where the block work ran (``crc.compress.device``,
+``crc.decompress.device``: the crc kernel, ``ops.crc``); bit-packed frames count
 each per-lane block's lane-size table by its kind,
 ``size_table.<op>.coded`` (k=2-coded) or ``size_table.<op>.raw`` (stored as
 it is). Take ``dict(counters)`` before and after a call to

@@ -16,7 +16,8 @@
 // tests/test_torch_tables_emulated.py (tables_main.cpp),
 // tests/test_torch_lane_decode_emulated.py (lane_decode_main.cpp) and
 // tests/test_torch_coder_emulated.py (fse_coder_main.cpp) and
-// tests/test_torch_histogram_emulated.py (histogram_main.cpp). atomicOr,
+// tests/test_torch_histogram_emulated.py (histogram_main.cpp) and
+// tests/test_torch_crc_emulated.py (crc_main.cpp). atomicOr,
 // atomicMin and atomicAdd (shared or global, 32 or 64 bit) are
 // std::atomic_ref operations, __syncthreads_or a vote between barriers. A
 // cooperative launch's grid is a set of blocks run at once:
@@ -36,6 +37,7 @@
 #define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
+#define __constant__
 #define __align__(x) __attribute__((aligned(x)))
 typedef int cudaError_t;
 typedef void* cudaStream_t;

@@ -10,7 +10,9 @@ bytes plus the call's input, so that a site left uncounted shows.
 Frames that carry FLAG_CRC or FLAG_PACKED mark that work too, and only
 they: each crc pass is a range ``ect.<op>.crc`` and each lane-size table a
 range ``ect.<op>.size_table``, and the counters ``crc.<op>`` (the raw bytes
-checksummed) and ``size_table.<op>.coded`` / ``.raw`` (the per-lane blocks
+checksummed), ``crc.<op>.device`` (those of them checksummed where the
+block work ran: every full block on compress, every per-lane block on
+decompress) and ``size_table.<op>.coded`` / ``.raw`` (the per-lane blocks
 by the kind of their size table) hold exactly.
 
 The mesh is ``torch.device("cpu")`` n times (virtual ranks, the plain
@@ -80,6 +82,13 @@ CASES = {
     "packed_crc_range": ("fse_tail", dict(lanes=True, bit_pack=True,
                                           checksum=True), 1,
                          dict(start=17, length=3), None),
+    # FLAG_CRC over blocks that are checksummed on the host on decompress
+    # (RLE, RAW, a MODE_FSE tail) beside per-lane ones, on a mesh too
+    "crc_rle": ("rle", dict(lanes=True, checksum=True), 1, {}, None),
+    "crc_fse_raw_fallback": ("raw_fallback", dict(lanes=False,
+                                                  checksum=True), 1, {}, None),
+    "crc_fse_tail_mesh3": ("fse_tail", dict(lanes=True, checksum=True), 3,
+                           {}, None),
 }
 
 
@@ -385,15 +394,19 @@ def _flag_counted(before: dict, op: str) -> Counter:
     got = Counter()
     for key, v in profiling.counters.items():
         d = v - before.get(key, 0)
-        if d and (key == f"crc.{op}" or key.startswith(f"size_table.{op}.")):
+        if d and (key in (f"crc.{op}", f"crc.{op}.device")
+                  or key.startswith(f"size_table.{op}.")):
             got[key] = d
     return got
 
 
 def _expected_flag_counts(frame, dkw, op: str) -> Counter:
     """From the frame: the raw bytes of the blocks a call checksums (every
-    block on compress, the range's blocks on decompress) and its per-lane
-    blocks by the kind of their size table (k=2-coded or raw)."""
+    block on compress, the range's blocks on decompress), those of them
+    checksummed on the device (the full blocks, which were placed there, on
+    compress; the per-lane blocks, decoded there, on decompress; never a
+    RAW, RLE or MODE_FSE block's) and its per-lane blocks by the kind of
+    their size table (k=2-coded or raw)."""
     pf = F._parse_frame(frame)
     bs = pf.block_size
     lo, hi = 0, pf.n_blocks
@@ -403,6 +416,12 @@ def _expected_flag_counts(frame, dkw, op: str) -> Counter:
     want = Counter()
     if pf.crcs is not None:
         want[f"crc.{op}"] = min(hi * bs, pf.total_len) - lo * bs
+        if op == "compress":
+            want["crc.compress.device"] = pf.total_len // bs * bs
+        else:
+            want["crc.decompress.device"] = sum(
+                min(bs, pf.total_len - i * bs) for i in range(lo, hi)
+                if int(pf.modes[i]) == F.MODE_FSE_PL)
     if pf.packed:
         for i in range(lo, hi):
             if int(pf.modes[i]) == F.MODE_FSE_PL:

@@ -371,6 +371,26 @@ def test_failed_decode_hands_out_nothing(mixed_frame):
     assert decompress(frame) == data.tobytes()
 
 
+def _raises_zeroed(frame: bytes, n: int, match: str, **kw) -> None:
+    """Decoding ``frame`` raises ValueError matching ``match``, and no
+    result is handed out: in every frame of the call's traceback ``result``
+    is None and the bytes the call decoded into (``n`` of them) are
+    zeros."""
+    with pytest.raises(ValueError, match=match) as err:
+        decompress(frame, **kw)
+    seen, tb = 0, err.tb
+    while tb is not None:
+        if tb.tb_frame.f_code.co_filename == F.__file__:
+            local = tb.tb_frame.f_locals
+            assert local.get("result") is None
+            for v in local.values():
+                if isinstance(v, (bytes, np.ndarray)) and len(v) == n:
+                    assert not np.frombuffer(v, np.uint8).any()
+                    seen += 1
+        tb = tb.tb_next
+    assert seen  # the decode's view, in the call's own frames
+
+
 def test_failed_decode_leaves_no_written_bytes_reachable(mixed_frame):
     """A call that raises zeroes the bytes it was decoding into, so the
     traceback's frames reach none of its written, or never written, bytes:
@@ -386,21 +406,7 @@ def test_failed_decode_leaves_no_written_bytes_reachable(mixed_frame):
     for site, at in sites.items():
         bad = bytearray(frame)
         bad[at] ^= 0x01
-        with pytest.raises(ValueError) as err:
-            decompress(bytes(bad))
-        seen = 0
-        tb = err.tb
-        while tb is not None:
-            if tb.tb_frame.f_code.co_filename == F.__file__:
-                local = tb.tb_frame.f_locals
-                assert local.get("result") is None, site
-                for v in local.values():
-                    if (isinstance(v, (bytes, np.ndarray))
-                            and len(v) == len(data)):
-                        assert not np.frombuffer(v, np.uint8).any(), site
-                        seen += 1
-            tb = tb.tb_next
-        assert seen, site  # the decode's view, in the call's own frames
+        _raises_zeroed(bytes(bad), len(data), "")
 
 
 @pytest.mark.parametrize("fault,message", [("zeros", "missing marker bit"),
@@ -425,3 +431,162 @@ def test_fse_marker_checks_match_jax(fault, message):
         decompress(bytes(bad))
     with pytest.raises(ValueError, match=f"block 1: {message}"):
         JF.decompress(bytes(bad))
+
+
+# --- the crc32s on the device ---------------------------------------------------------
+
+# name -> (input, knobs, virtual ranks): FLAG_CRC frames whose full blocks
+# are checksummed where they lie (``ops.crc``; the plain version on the
+# CPU), the ragged tail on the host; 4 KiB blocks at k = 256
+CRC_CONFIGS = {
+    "lanes": (4 * 4096, dict(), 1),
+    "bit_pack_lane_tail": (2 * 4096 + 512, dict(bit_pack=True), 1),
+    "fse_tail": (3 * 4096 + 777, dict(), 1),
+    "fse_tail_mesh3": (5 * 4096 + 777, dict(), 3),
+    "bit_pack_mesh2": (5 * 4096 + 512, dict(bit_pack=True), 2),
+    "shared_table_mesh4": (3 * 4096 + 100, dict(shared_table=True), 4),
+}
+
+
+def _crc_data(name: str) -> np.ndarray:
+    size = CRC_CONFIGS[name][0]
+    data = gen_sequence(0.2, size, seed=size % 1000)
+    if name.startswith("fse_tail"):  # an RLE and a RAW block on the host too
+        data[4096: 2 * 4096] = 5
+        data[2 * 4096: 3 * 4096] = np.random.default_rng(3).integers(
+            0, 256, 4096, np.uint8)
+    return data
+
+
+def _on_ranks(n: int) -> dict:
+    if n == 1:
+        return dict(device="cpu")
+    from entropy_coders_tpu_torch.parallel import block_sharding
+
+    return dict(sharding=block_sharding((torch.device("cpu"),) * n))
+
+
+@pytest.fixture(scope="module")
+def crc_frames():
+    """name -> (data, the JAX package's frame), built once."""
+    out = {}
+    for name, (_, kw, _) in CRC_CONFIGS.items():
+        data = _crc_data(name)
+        out[name] = (data, JF.compress(data, block_size=4096, k=256,
+                                       lanes=True, checksum=True,
+                                       interpret=True, **kw))
+    return out
+
+
+@pytest.mark.parametrize("name", list(CRC_CONFIGS))
+def test_crc_frames_match_jax(name, crc_frames):
+    """The crc tables written from the device's crcs are the JAX package's
+    (``zlib.crc32`` on the host) byte for byte, with and without
+    ``bit_pack``, with a ragged tail and on a virtual mesh of shares; each
+    decodes, crcs checked, in both packages."""
+    data, jframe = crc_frames[name]
+    _, kw, n = CRC_CONFIGS[name]
+    frame = F.compress(data, block_size=4096, k=256, lanes=True,
+                       checksum=True, **kw, **_on_ranks(n))
+    assert frame == jframe
+    assert F.decompress(jframe, **_on_ranks(n)) == data.tobytes()
+    assert JF.decompress(frame, interpret=True) == data.tobytes()
+
+
+def _lane_starts(frame: bytes, block: int) -> list:
+    """Frame offsets of the first byte of each lane stream of per-lane
+    block ``block`` of an unpacked frame without a shared table."""
+    pf = F._parse_frame(frame)
+    sec = pf.section(block)
+    _, _, payload = F._read_block_header(sec)
+    at = int(pf.offs[block]) + len(sec) - len(payload) + 2 * pf.k
+    sz = np.frombuffer(payload[: 2 * pf.k], "<u2").astype(np.int64)
+    return (at + np.concatenate([[0], np.cumsum((sz + 7) >> 3)[:-1]])).tolist()
+
+
+@pytest.fixture(scope="module")
+def decodable_flip():
+    """(data, crc frame, block, offset): one bit of a per-lane block's
+    payload flipped so that the block still decodes, to other bytes (the
+    lowest bit of a lane's stream is read last: it moves only the lane's
+    final state). Found on the frame without crcs, whose sections are the
+    same."""
+    bs = 4096
+    data = gen_sequence(0.2, 4 * bs + 300, seed=61)
+    kw = dict(block_size=bs, k=128, lanes=True)
+    plain, frame = compress(data, **kw), compress(data, checksum=True, **kw)
+    pf = F._parse_frame(frame)
+    block = 2
+    assert pf.modes[block] == F.MODE_FSE_PL
+    shift = len(frame) - len(plain)  # the crc table
+    for at in _lane_starts(plain, block):
+        bad = bytearray(plain)
+        bad[at] ^= 0x01
+        try:
+            got = decompress(bytes(bad))
+        except ValueError:
+            continue
+        if got != data.tobytes():
+            return data, frame, block, at + shift
+    raise AssertionError("no decodable flip found")
+
+
+
+
+@pytest.mark.parametrize("start,length", [(0, None), (2 * 4096, 4096),
+                                          (4096, 3 * 4096)],
+                         ids=["whole", "the_block", "around_it"])
+def test_device_crc_catches_a_decodable_flip(decodable_flip, start, length):
+    """A flipped payload bit that B1 decodes without complaint is caught
+    by the block's crc, computed where it was decoded, on whole-frame and
+    range reads; the bytes decoded into in place are zeroed, and a range
+    without the block decodes."""
+    data, frame, block, at = decodable_flip
+    bad = bytearray(frame)
+    bad[at] ^= 0x01
+    n = len(data) if length is None else length
+    _raises_zeroed(bytes(bad), n, f"block {block}: crc mismatch",
+                   start=start, length=length)
+    assert decompress(bytes(bad), start=0, length=2 * 4096) == \
+        data[: 2 * 4096].tobytes()
+    assert decompress(frame, start=start, length=length) == \
+        data[start: start + n].tobytes()
+
+
+@pytest.fixture
+def crc_calls(monkeypatch):
+    """Every call of the crc kernel's wrapper from the frame code, by the
+    number of rows it took."""
+    from entropy_coders_tpu_torch.ops import crc as K
+    from entropy_coders_tpu_torch.ops import pl_coder as PL
+
+    calls = []
+
+    def counted(rows, tail=None):
+        calls.append(rows.shape[0])
+        return K.crc32_blocks(rows, tail)
+
+    monkeypatch.setattr(F, "crc32_blocks", counted)
+    monkeypatch.setattr(PL, "crc32_blocks", counted)
+    return calls
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 3])
+@pytest.mark.parametrize("checksum", [True, False], ids=["crc", "no_crc"])
+def test_one_crc_launch_a_share_a_call(crc_calls, ranks, checksum):
+    """On a FLAG_CRC frame, compress checksums each share of the full
+    blocks once and decompress each share of a per-lane group once (one
+    chunk a share at this size); a frame without the flag calls no crc.
+    On the CPU the wrapper runs the plain version: CRC_LAUNCHES stays."""
+    from entropy_coders_tpu_torch.ops import crc as K
+
+    data = gen_sequence(0.2, 6 * 4096 + 777, seed=62)
+    before = K.CRC_LAUNCHES
+    frame = F.compress(data, block_size=4096, k=128, lanes=True,
+                       checksum=checksum, **_on_ranks(ranks))
+    shares = [len(s) for s in np.array_split(np.arange(6), ranks)]
+    assert crc_calls == (shares if checksum else [])
+    crc_calls.clear()
+    assert F.decompress(frame, **_on_ranks(ranks)) == data.tobytes()
+    assert crc_calls == (shares if checksum else [])
+    assert K.CRC_LAUNCHES == before

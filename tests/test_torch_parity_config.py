@@ -82,3 +82,31 @@ def test_a_flipped_crc_byte_is_caught_by_both(parity, block, byte):
         F.decompress(bytes(bad), device="cpu")
     rep = check_frame(bytes(bad), x, knobs)
     assert rep.blocks_wrong == [(block, "crc")] and not rep.frame_wrong
+
+
+def test_every_crc_is_made_on_the_device_at_the_parity_point(parity):
+    """At the parity point each block's crc is computed where the block
+    work runs (``ops.crc``): every full block on compress, every per-lane
+    block on decompress; only a ragged tail block, never a row there, is
+    checksummed on the host when compressing. So ``crc.<op>.device`` over
+    ``crc.<op>`` is 1.0 in the cell, which has no tail."""
+    from entropy_coders_tpu_torch.utils import profiling
+
+    x, _, _ = parity
+    _, kw, _ = _cell(len(x))
+    got = {}
+    for op in ("compress", "decompress"):
+        before = dict(profiling.counters)
+        if op == "compress":
+            frame = F.compress(x, device="cpu", **kw)
+        else:
+            assert F.decompress(frame, device="cpu") == x.tobytes()
+        got[op] = [profiling.counters.get(key, 0) - before.get(key, 0)
+                   for key in (f"crc.{op}", f"crc.{op}.device")]
+    full = len(x) // BS * BS
+    pf = F._parse_frame(frame)
+    assert (pf.modes[: len(x) // BS] == F.MODE_FSE_PL).all()
+    # the 5,000-byte tail (not lane-divisible) is MODE_FSE: on the host
+    per_lane = full + (len(x) - full) * int(pf.modes[-1] == F.MODE_FSE_PL)
+    assert got["compress"] == [len(x), full]
+    assert got["decompress"] == [len(x), per_lane]
