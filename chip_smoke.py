@@ -669,10 +669,11 @@ def _device_host_counts():
 
 @contextlib.contextmanager
 def stage_clocks(spent: dict):
-    """While open, the ``ect.*`` ranges of ``frame`` and of
+    """While open, the ``ect.*`` ranges of ``frame``, of ``mesh`` and of
     ``pl_coder.tables_from_norm`` add their host time to ``spent`` (stage
     -> seconds) in place of profiler ranges."""
     from entropy_coders_tpu_torch import frame as TF
+    from entropy_coders_tpu_torch import mesh as M
     from entropy_coders_tpu_torch.ops import pl_coder as PL
 
     @contextlib.contextmanager
@@ -683,12 +684,12 @@ def stage_clocks(spent: dict):
         finally:
             spent[stage] = spent.get(stage, 0.0) + time.perf_counter() - t0
 
-    saved = TF._stage, PL.record_function
-    TF._stage = PL.record_function = clock
+    saved = TF._stage, M._stage, PL.record_function
+    TF._stage = M._stage = PL.record_function = clock
     try:
         yield spent
     finally:
-        TF._stage, PL.record_function = saved
+        TF._stage, M._stage, PL.record_function = saved
 
 
 def phase_routes(T, PL, points, rounds: int = 3):
@@ -1960,11 +1961,11 @@ def rank_counts(blocks_dev, n):
     device-resident blocks."""
     import numpy as np
 
-    from entropy_coders_tpu_torch.frame import _shares
+    from entropy_coders_tpu_torch.mesh import shares
     from entropy_coders_tpu_torch.ops.histogram import histogram_blocks
 
     out = np.zeros((n, 256), np.int64)
-    for i, (_, _, lo, hi) in enumerate(_shares(blocks_dev.shape[0],
+    for i, (_, _, lo, hi) in enumerate(shares(blocks_dev.shape[0],
                                                (None,) * n)):
         out[i] = histogram_blocks(blocks_dev[lo:hi]).sum(0).cpu().numpy()
     return out
@@ -2558,6 +2559,7 @@ def sharded_shared_stream(T, P, data, virtual8) -> dict:
     import torch
 
     from entropy_coders_tpu_torch import frame as TF
+    from entropy_coders_tpu_torch import mesh as M
 
     knobs, want_bytes, want_sha = SHARED_STREAM["fse_default"]
     want = T.compress(data, device="cuda", **knobs)
@@ -2566,7 +2568,7 @@ def sharded_shared_stream(T, P, data, virtual8) -> dict:
     pf = TF._parse_frame(want)
     log2 = np.array([TF._read_block_header(pf.section(i))[1]
                      for i in range(pf.n_blocks)])
-    shares = sum(len(TF._shares(int((log2 == L).sum()), virtual8))
+    shares = sum(len(M.shares(int((log2 == L).sum()), virtual8))
                  for L in np.unique(log2))
 
     # the watch sees a sync where there is one: ``.item()`` waits
@@ -2586,7 +2588,7 @@ def sharded_shared_stream(T, P, data, virtual8) -> dict:
     expect = {"decode": 0, "encode": 0, "merge": 0, "split": 0,
               "tables": 2 * shares, "fse_encode": shares,
               "fse_decode": shares,
-              "histogram": len(TF._shares(len(data) // knobs["block_size"],
+              "histogram": len(M.shares(len(data) // knobs["block_size"],
                                           virtual8)), "crc": 0}
     check(got == expect, f"sharded MODE_FSE: a round trip on 8 ranks "
           f"launched {got}, expected {expect}")
@@ -2648,6 +2650,7 @@ def d6_on_8_ranks(T, P, TF, data, virtual8, single_frame) -> dict:
     holds it."""
     import torch
 
+    from entropy_coders_tpu_torch import mesh as M
     from entropy_coders_tpu_torch.ops import histogram as H
 
     control, seen = types.SimpleNamespace(
@@ -2659,7 +2662,7 @@ def d6_on_8_ranks(T, P, TF, data, virtual8, single_frame) -> dict:
     with syncs_in(TF, ("histogram_blocks",), syncs):
         frame = P.compress(data, virtual8, **THROUGHPUT)
     launches = H.HIST_LAUNCHES - h0
-    shares = len(TF._shares(len(data) // BLOCK, virtual8))
+    shares = len(M.shares(len(data) // BLOCK, virtual8))
     check(frame == single_frame, "8 ranks: the frame differs")
     check(launches == shares, f"8 ranks: {launches} D6 launches for "
           f"{shares} shares")

@@ -13,21 +13,22 @@ Pipeline per frame:
   only the payload bytes come back; the C++ merge for the CPU) -> frame
   assembly. Decode mirrors it: the span of the frame that holds the
   per-lane payloads goes to the card once, the lane split (D2) and the
-  per-lane decode kernel (B1) run there. Each public call is one
+  per-lane decode kernel (B1) run there, and the blocks are written into
+  one buffer: the caller's ``out`` over a block-aligned range, else one
+  fresh ``bytes``, returned whole or, for an unaligned range, sliced. On
+  frames with crcs the blocks are checksummed where they lie (``ops.crc``):
+  each share's full blocks behind the last encode dispatch, each decoded
+  per-lane chunk behind B1; the host writes or compares 4 bytes a block,
+  and checksums only the blocks it holds alone (a compress's ragged tail;
+  RAW, RLE and MODE_FSE blocks on decompress). Each public call is one
   ``torch.profiler`` range (``ect.compress``, ``ect.decompress``) from its
   first line until its locals are released; its stages are named ranges
-  inside it (``ect.compress.*``, ``ect.decompress.*``; on a mesh each
-  share's dispatch and drain, ``ect.<op>.share_dispatch.<rank>`` and
-  ``.share_drain.<rank>``; a frame's crc pass ``ect.<op>.crc`` and each
-  bit-packed block's lane-size table ``ect.<op>.size_table``), so a trace
-  splits the host's time by stage. The calls count themselves, the bytes
-  of the fresh host buffers they make, the bytes they checksum and the
-  size tables they code (``utils.profiling.counters``). On frames with
-  crcs the blocks are checksummed where they lie (the crc kernel,
-  ``ops.crc``): each share's full blocks behind its encode dispatch, each
-  decoded per-lane chunk behind B1; the host writes or compares 4 bytes a
-  block, and checksums only the blocks it holds alone (a compress's ragged
-  tail; RAW, RLE and MODE_FSE blocks on decompress).
+  inside it (``ect.<op>.*``: the share ranges of ``mesh``, a frame's crc
+  pass ``ect.<op>.crc``, each bit-packed block's lane-size table
+  ``ect.<op>.size_table``), so a trace splits the host's time by stage.
+  The calls count themselves, the bytes of the fresh host buffers they
+  make, the bytes they checksum and the size tables they code
+  (``utils.profiling.counters``).
 
 ``device`` selects where the block work runs. It defaults to ``"cuda"`` and
 raises when CUDA is unavailable; ``device="cpu"`` runs the kernels' plain
@@ -41,22 +42,13 @@ output is on the card at once.
 
 ``sharding`` (``parallel.block_sharding(mesh)``, the counterpart of the JAX
 package's ``NamedSharding`` over the block axis) spreads the block work over
-``sharding.mesh``, a tuple of devices in which a device may repeat (virtual
-ranks). The blocks of each table-log group split into one contiguous share
-per mesh entry; each share goes through the kernels on its own device and
-its sections land in block order. No share is padded. As the JAX package's
-one SPMD call over the mesh runs every chip at once, every share's work is
-queued on its own device before the host drains any: the h2d of the blocks
-(from pinned staging when the mesh spans several cards), the histograms
-(D6, behind its card's copy, and their d2h), a lane group's chunks,
-and a shared-stream (MODE_FSE) group's symbols, tables, encode or decode
-and the d2h of its outputs. Compress takes a table-log group at a time,
-every share of it dispatched before the first is drained; decompress
-dispatches every share of every group, MODE_FSE and per-lane, before the
-first drain. Then the host drains the shares in block order, so one
-share's assembly or write-back overlaps the device work of the shares
-after it. The unsharded call is the one-share case of the same code.
-``sharding`` changes no byte of the frame.
+``sharding.mesh``. Every stage goes through ``mesh``'s one share loop, a
+share on its own device, unpadded: compress's h2d and histograms, then a
+table-log group's encode at a time; decompress dispatches every share of
+every group, MODE_FSE then per-lane, before the first drain. A dispatch
+returns its share's handle (``_Queued``, ``_FseEncoded``, or the d2h's
+``Later``) and its drain takes it. The unsharded call is the one-share
+case; ``sharding`` changes no byte of the frame.
 """
 
 from __future__ import annotations
@@ -67,11 +59,13 @@ import struct
 import types
 import zlib
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function as _stage
 
+from . import mesh as M
 from . import native
 from .constants import TABLE_LOG_DEFAULT, TABLE_LOG_MAX, TABLE_LOG_MIN
 from .normalize import normalize_batch
@@ -80,7 +74,7 @@ from .ops import pl_coder as PL
 from .ops.coder import blocks_to_syms, decode_core, encode_core, encode_layout
 from .ops.crc import crc32_blocks
 from .ops.histogram import histogram_blocks
-from .ops.unsigned import resolve_device, to_device, to_numpy
+from .ops.unsigned import d2h, launched, to_device
 from .utils.profiling import count as _count
 
 MAGIC = b"FSET"
@@ -118,76 +112,6 @@ def _device_repack(dev: torch.device) -> bool:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def _mesh_devices(mesh) -> tuple[torch.device, ...]:
-    """A mesh (devices, one per rank; a device may repeat) checked as
-    ``resolve_device`` checks one device: non-empty and of one device type."""
-    mesh = tuple(resolve_device(d) for d in mesh)
-    if not mesh:
-        raise ValueError("empty mesh")
-    if len({d.type for d in mesh}) > 1:
-        raise ValueError(f"mesh mixes device types: {mesh}")
-    return mesh
-
-
-def _mesh(device, sharding) -> tuple[torch.device, ...]:
-    """The devices the block work runs on: ``sharding.mesh`` or, without a
-    sharding, ``device`` (default ``"cuda"``) alone. A ``device`` given
-    beside a sharding must name the mesh's devices."""
-    if sharding is None:
-        return (resolve_device("cuda" if device is None else device),)
-    mesh = _mesh_devices(sharding.mesh)
-    if device is not None:
-        want = torch.device(device)
-        if any(d.type != want.type or want.index not in (None, d.index)
-               for d in mesh):
-            raise ValueError(f"device={want} contradicts the sharding's "
-                             f"mesh {mesh}")
-    return mesh
-
-
-def _spans_cards(mesh) -> bool:
-    """Whether ``mesh`` names several CUDA devices: then its h2d copies go
-    out from pinned staging without blocking the host, so that the copies
-    to every card run at once. A copy to one card (virtual ranks included)
-    stays the pageable one, which the single-device path has always
-    made."""
-    return len({d for d in mesh if d.type == "cuda"}) > 1
-
-
-def _host_later(t: torch.Tensor, after=None, role: int = 0):
-    """A zero-argument callable that returns ``t`` as host numpy: on CUDA
-    the d2h is queued now into pinned memory on copy stream ``role``,
-    behind event ``after`` (default: the work queued so far on ``t``'s
-    card), and the callable waits for that copy alone
-    (``pl_coder._d2h``)."""
-    if t.device.type != "cuda":
-        return lambda: to_numpy(t)
-    (host,), wait = PL._d2h(
-        [t], PL._launched(t.device) if after is None else after, role)
-
-    def get():
-        wait()
-        return to_numpy(host)
-
-    return get
-
-
-def _shares(n_rows: int, mesh) -> list[tuple[int, torch.device, int, int]]:
-    """Contiguous balanced row ranges, one per mesh entry, as (rank,
-    device, lo, hi), the rank the entry's index in ``mesh``; empty ones are
-    left out (5 rows over 8 devices give 5 shares)."""
-    p = len(mesh)
-    bounds = [i * n_rows // p for i in range(p + 1)]
-    return [(i, d, bounds[i], bounds[i + 1]) for i, d in enumerate(mesh)
-            if bounds[i + 1] > bounds[i]]
-
-
-def _share(op: str, part: str, rank: int):
-    """The range of one mesh share's dispatch or drain (``part``):
-    ``ect.<op>.share_<part>.<rank>``."""
-    return _stage(f"ect.{op}.share_{part}.{rank}")
 
 
 def _call_range(op: str):
@@ -271,7 +195,7 @@ def compress(
     ``sharding`` spreads the block work over ``sharding.mesh`` (module
     docstring); the ragged tail block runs on the mesh's first device."""
     _count("calls.compress")
-    mesh = _mesh(device, sharding)
+    mesh = M.of_call(device, sharding)
     if lanes is None:
         lanes = mesh[0].type == "cuda"
     if table_log is None:
@@ -297,41 +221,25 @@ def compress(
     modes = np.full(n_blocks, MODE_FSE, np.int32)
 
     nsym = blocks = None
-    placed = []
-    crc_pending = []  # (first block, its share's crcs later) a share
-
-    def queue_crcs():
-        # each share's crc kernel over its device copy, behind the share's
-        # encode dispatch (nothing waits behind it on the card), and the
-        # d2h of its 4 bytes a block
-        if checksum:
-            for (rank, *_), (lo, t) in zip(shares, placed):
-                with _share("compress", "dispatch", rank):
-                    crc_pending.append((lo, _host_later(crc32_blocks(t))))
-
+    # the full blocks' shares, each one's device copy and its crcs later
+    shares, placed, crc_pending = [], [], []
     if full:
         blocks = data[: full * block_size].reshape(full, block_size)
-        shares = _shares(full, mesh)
+        shares = M.shares(full, mesh)
         # one h2d per share of the mesh (one share without a sharding): the
         # device copies feed both the histogram and the lane encode kernel
         with _stage("ect.compress.h2d"):
-            pinned = _spans_cards(mesh)
-            for rank, d, lo, hi in shares:
-                with _share("compress", "dispatch", rank):
-                    placed.append((lo, to_device(blocks[lo:hi], d,
-                                                 non_blocking=pinned)))
+            pinned = M.spans_cards(mesh)
+            placed = M.dispatch("compress", shares, lambda s: to_device(
+                blocks[s.lo: s.hi], s.device, non_blocking=pinned))
         with _stage("ect.compress.histogram"):
             # every share's D6 and the d2h of its counts are queued behind
             # that share's h2d before the first is waited for: nothing here
             # waits for a card until the last share's work is queued
-            pending, got = [], []
-            for (rank, *_), (_, t) in zip(shares, placed):
-                with _share("compress", "dispatch", rank):
-                    pending.append(_host_later(histogram_blocks(t)))
-            for (rank, *_), get in zip(shares, pending):
-                with _share("compress", "drain", rank):
-                    got.append(get())
-            counts = np.concatenate(got)
+            pending = M.dispatch("compress", shares, lambda s, t: d2h(
+                [histogram_blocks(t)]), placed)
+            counts = np.concatenate(M.drain("compress", shares, pending,
+                                            lambda s, later: later.get()[0]))
         # single-symbol blocks can't be FSE-coded (the reference's
         # normalization rejects table_len == 1); they take the RLE escape
         nsym = (counts != 0).sum(axis=1)
@@ -359,6 +267,7 @@ def compress(
 
     if full:
         codable = np.flatnonzero(nsym > 1)
+        drain_last = None
         if codable.size:
             if shared_table:
                 norm_tables = np.repeat(s_shared[0][None], codable.size,
@@ -368,12 +277,19 @@ def compress(
                 with _stage("ect.compress.normalize"):
                     norm_tables, log2_arr = normalize_batch(
                         counts[codable], block_size, table_log)
-            _encode_group(blocks, norm_tables, log2_arr, k, shared_table,
-                          sections, modes, codable, mesh, lanes=lanes,
-                          placed=placed, bit_pack=bit_pack,
-                          on_dispatched=queue_crcs)
-        else:
-            queue_crcs()
+            drain_last = _encode_group(
+                blocks, norm_tables, log2_arr, k, shared_table, sections,
+                modes, codable, mesh, lanes=lanes,
+                placed=list(zip(shares, placed)), bit_pack=bit_pack)
+        if checksum:
+            # each share's crc kernel over its device copy, behind the last
+            # group's encode dispatch and before its first drain (nothing
+            # waits behind it on the card), and the d2h of its 4 bytes a
+            # block
+            crc_pending = M.dispatch("compress", shares, lambda s, t:
+                                     d2h([crc32_blocks(t)]), placed)
+        if drain_last is not None:
+            drain_last()
 
     if full * block_size < total_len:  # ragged tail block
         with _stage("ect.compress.tail"):
@@ -394,7 +310,7 @@ def compress(
                 modes[i] = MODE_RAW
                 sections[i] = data[o: o + rl].tobytes()
                 _count("host_bytes.compress.escapes", rl)
-            if nsym is not None and i < len(nsym):
+            if i < full:
                 is_const = bool(nsym[i] == 1)
             else:
                 is_const = rl > 1 and bool((data[o: o + rl] == data[o]).all())
@@ -415,9 +331,8 @@ def compress(
                 # the full blocks' crcs from the card; the ragged tail
                 # block, never a row there, on the host
                 crcs = np.empty(n_blocks, np.uint32)
-                for lo, get in crc_pending:
-                    got = get()
-                    crcs[lo: lo + len(got)] = got
+                for s, later in zip(shares, crc_pending):
+                    crcs[s.lo: s.hi] = later.get()[0]
                 for i in range(full, n_blocks):
                     crcs[i] = zlib.crc32(data[i * block_size:][:raw_lens[i]])
                 parts.append(crcs.astype("<u4").tobytes())
@@ -511,8 +426,9 @@ def _encode_dispatch_pl(blocks_dev, norm_tables, l2, k, bit_pack=False):
     B2 on CUDA, its plain version on CPU, ~64 MiB of raw bytes per call,
     each call on its rows of the tables, and the lane merge (D1 on the card
     behind B2; on the C++ route, ``_DEVICE_REPACK``, the merge runs at the
-    drain). Returns what ``_encode_drain_pl`` takes: the tables, 2^(L+1) +
-    2 KiB a block, are held until the group's last chunk is collected."""
+    drain). Returns the ``_Queued`` that ``_encode_drain_pl`` takes: the
+    tables, 2^(L+1) + 2 KiB a block, are held until the group's last chunk
+    is collected."""
     B, n = blocks_dev.shape
     R = n // k - 1
     W = PL.encode_w_bound(R, int(l2))
@@ -538,8 +454,8 @@ def _encode_dispatch_pl(blocks_dev, norm_tables, l2, k, bit_pack=False):
     with _stage("ect.compress.dispatch"):
         tables = PL.tables_from_norm(norm_tables, int(l2), blocks_dev.device,
                                      half="encode")
-        handles = [(j0, launch(j0)) for j0 in range(0, B, chunk)]
-    return tables, on_device, handles
+        chunks = [(j0, launch(j0)) for j0 in range(0, B, chunk)]
+    return _Queued(chunks, tables, on_device)
 
 
 def _encode_drain_pl(dispatched, norm_tables, l2, shared_table, sections,
@@ -547,11 +463,10 @@ def _encode_drain_pl(dispatched, norm_tables, l2, shared_table, sections,
     """Collect the chunks ``_encode_dispatch_pl`` queued, in order, and
     assemble their sections on the host: row j of ``norm_tables`` codes
     block ``block_ids[j]`` into ``sections[block_ids[j]]``."""
-    _tables, on_device, handles = dispatched
-    for j0, collect in handles:
+    for j0, collect in dispatched.chunks:
         with _stage("ect.compress.collect"):
             got = collect()
-        if on_device:
+        if dispatched.on_device:
             flat, offs, szs = got
             payloads = [flat[offs[jj]: offs[jj + 1]]
                         for jj in range(len(szs))]
@@ -581,14 +496,14 @@ def _encode_drain_pl(dispatched, norm_tables, l2, shared_table, sections,
 
 def _rows_on(dev, ids, blocks, placed):
     """Blocks ``ids`` (sorted) of the host array ``blocks`` as one tensor on
-    ``dev``: a slice or gather of a device copy in ``placed`` ((first block,
+    ``dev``: a slice or gather of a device copy in ``placed`` ((share,
     tensor) pairs) that holds them all, else one h2d."""
-    for lo, t in placed:
-        if t.device == dev and lo <= ids[0] and ids[-1] < lo + t.shape[0]:
+    for s, t in placed:
+        if t.device == dev and s.lo <= ids[0] and ids[-1] < s.hi:
             if ids[-1] - ids[0] + 1 == len(ids):
-                return t[ids[0] - lo: ids[-1] - lo + 1]
+                return t[ids[0] - s.lo: ids[-1] - s.lo + 1]
             # a blocking copy would wait for the shares queued on ``dev``
-            return t[to_device(ids - lo, dev, non_blocking=True)]
+            return t[to_device(ids - s.lo, dev, non_blocking=True)]
     rows = blocks[ids]
     _count("host_bytes.compress.gather", rows.nbytes)
     return torch.from_numpy(rows).to(dev)
@@ -596,62 +511,58 @@ def _rows_on(dev, ids, blocks, placed):
 
 def _encode_group(blocks, norm_tables, log2_arr, k, shared_table, sections,
                   modes, block_ids, mesh, lanes=False, placed=(),
-                  bit_pack=False, on_dispatched=None):
+                  bit_pack=False):
     """Encode equal-size blocks, grouped by effective table log: row j of
     ``norm_tables``/``log2_arr`` codes block ``block_ids[j]`` of the host
     array ``blocks`` into ``sections[block_ids[j]]``. Each group splits into
     one contiguous share per entry of ``mesh``. With ``lanes``, eligible
-    groups take the per-lane path (reading the device copies in ``placed``
-    where they hold the share); the others take the shared-stream path
-    (ops.coder). Either way every share of a group is dispatched on its own
-    device before the first is drained, and the drains run in block order.
-    The groups run in turn, as in the JAX package. ``on_dispatched`` (no
-    arguments) is called once, when every share of the last group is
-    dispatched and none drained."""
+    groups take the per-lane path (reading the device copies in ``placed``,
+    (share, tensor) pairs, where they hold the share); the others take the
+    shared-stream path (ops.coder). The groups run in turn, as in the JAX
+    package. Returns the last group's drain, not yet run: the caller may
+    queue more work behind that group's encode before calling it."""
     n = blocks.shape[1]
     layout = None  # shared-stream emission layout, built on first use
     groups = np.unique(log2_arr)
-
-    for l2 in groups:
-        last = on_dispatched is not None and l2 == groups[-1]
+    for l2 in map(int, groups):
         rows = np.flatnonzero(log2_arr == l2)
-        shares = [(rank, dev, rows[lo:hi]) for rank, dev, lo, hi in
-                  _shares(len(rows), mesh)]
-        dispatched = []
-        if lanes and _pl_eligible(n, k, int(l2)):
-            for rank, dev, r in shares:
-                with _share("compress", "dispatch", rank):
-                    dispatched.append(_encode_dispatch_pl(
-                        _rows_on(dev, block_ids[r], blocks, placed),
-                        norm_tables[r], int(l2), k, bit_pack=bit_pack))
-            if last:
-                on_dispatched()
-            for (rank, _, r), d in zip(shares, dispatched):
-                with _share("compress", "drain", rank):
-                    _encode_drain_pl(d, norm_tables[r], int(l2),
-                                     shared_table, sections, modes,
-                                     block_ids[r], bit_pack=bit_pack)
-            continue
-        if layout is None:
+        shares = M.shares(len(rows), mesh)
+        lane = lanes and _pl_eligible(n, k, l2)
+        if not lane and layout is None:
             layout = _FseLayout(n, k)
-        for rank, dev, r in shares:
-            with _share("compress", "dispatch", rank):
-                rows = blocks[block_ids[r]]
-                _count("host_bytes.compress.gather", rows.nbytes)
-                dispatched.append(_encode_dispatch_fse(
-                    rows, norm_tables[r], int(l2), k, dev, layout))
-        if last:
-            on_dispatched()
-        # every share's bit counts are read and the d2h of its words queued
-        # before the first share's words are waited for, so that one
-        # share's assembly overlaps the copies of the shares after it
-        with _stage("ect.compress.fse_collect"):
-            for d in dispatched:
-                d.fetch()
-        for (rank, _, r), d in zip(shares, dispatched):
-            with _share("compress", "drain", rank):
-                _encode_drain_fse(d, norm_tables[r], int(l2), shared_table,
+
+        def dispatch(s):
+            r = rows[s.lo: s.hi]
+            if lane:
+                return _encode_dispatch_pl(
+                    _rows_on(s.device, block_ids[r], blocks, placed),
+                    norm_tables[r], l2, k, bit_pack=bit_pack)
+            host = blocks[block_ids[r]]
+            _count("host_bytes.compress.gather", host.nbytes)
+            return _encode_dispatch_fse(host, norm_tables[r], l2, k,
+                                        s.device, layout)
+
+        def drain(s, queued):
+            r = rows[s.lo: s.hi]
+            if lane:
+                _encode_drain_pl(queued, norm_tables[r], l2, shared_table,
+                                 sections, modes, block_ids[r],
+                                 bit_pack=bit_pack)
+            else:
+                _encode_drain_fse(queued, norm_tables[r], l2, shared_table,
                                   sections, block_ids[r])
+
+        # on a MODE_FSE group every share's bit counts are read and the d2h
+        # of its words queued before the first share's words are waited
+        # for, so that one share's assembly overlaps the copies of the
+        # shares after it
+        last = functools.partial(
+            M.drain, "compress", shares, M.dispatch("compress", shares,
+                                                    dispatch), drain,
+            ready=None if lane else "ect.compress.fse_collect")
+        if l2 == groups[-1]:
+            return last
+        last()
 
 
 class _FseLayout:
@@ -673,32 +584,45 @@ class _FseLayout:
         return self._on[dev]
 
 
+class _Queued(NamedTuple):
+    """One share's per-lane encode or decode as its dispatch queued it:
+    ``chunks``, (first row, ``collect``) in row order; the group's
+    ``tables``, held until the last is collected; the encode's merge on the
+    card or not (``on_device``); the decode's crcs as the device computed
+    them, block -> crc, filled by its drain."""
+    chunks: list
+    tables: object = None
+    on_device: bool = False
+    crcs: dict | None = None
+
+    def ready(self) -> None:
+        """Nothing: every copy of the share was queued at dispatch."""
+
+
 class _FseEncoded:
     """One share's shared-stream encode as ``_encode_dispatch_fse`` queued
     it: D4's (B, W) words on the card and the d2h of the streams' bit
-    counts. ``fetch`` waits for the bit counts (``total_bits``, host numpy)
+    counts. ``ready`` waits for the bit counts (``total_bits``, host numpy)
     and queues the d2h of only the words the longest stream fills, behind
-    this share's D4 and not behind the kernels queued after it; ``words``
-    waits for that copy."""
+    this share's D4 and not behind the kernels queued after it; ``words``,
+    after it, waits for that copy."""
 
     def __init__(self, words: torch.Tensor, total_bits: torch.Tensor):
         self._words = words
-        self._after = (PL._launched(words.device)
-                       if words.device.type == "cuda" else None)
-        self._bits = _host_later(total_bits, self._after)
+        self._after = launched(words.device)
+        self._bits = d2h([total_bits], self._after)
         self._get = None
         self.total_bits = None
 
-    def fetch(self) -> None:
+    def ready(self) -> None:
         if self._get is None:
-            self.total_bits = self._bits()
+            (self.total_bits,) = self._bits.get()
             used = _cdiv(int(self.total_bits.max()), 32)
-            self._get = _host_later(self._words[:, :used], self._after, 1)
+            self._get = d2h([self._words[:, :used]], self._after, 1)
             self._words = None
 
     def words(self) -> np.ndarray:
-        self.fetch()
-        return self._get()
+        return self._get.get()[0]
 
 
 def _encode_dispatch_fse(blocks, norm_tables, l2, k, dev, layout):
@@ -757,7 +681,7 @@ def _encode_tail(tail, k, table_log, shared_table, s_shared, sections,
     (table, log2) pair, if any."""
     n = len(tail)
     k_t = min(k, n)  # every stream needs at least one byte
-    if n < 8 or k_t < 1:
+    if n < 8:
         modes[idx] = MODE_RAW
         sections[idx] = tail.tobytes()
         _count("host_bytes.compress.escapes", n)
@@ -773,7 +697,7 @@ def _encode_tail(tail, k, table_log, shared_table, s_shared, sections,
         tmp_modes = np.full(1, MODE_FSE, np.int32)
         _encode_group(tail[None, :], norm_tables, log2_arr, k_t,
                       shared_table, tmp_sections, tmp_modes, np.array([0]),
-                      (dev,), lanes=lanes, bit_pack=bit_pack)
+                      (dev,), lanes=lanes, bit_pack=bit_pack)()
         sections[idx] = tmp_sections[0]
         modes[idx] = tmp_modes[0]
     except ValueError:
@@ -900,17 +824,17 @@ def decompress(frame: bytes, *, start: int = 0, length: int | None = None,
 
     ``start``/``length`` decode only the blocks overlapping that byte range
     and return exactly that slice. When the frame carries per-block crc32s,
-    each decoded block is verified. Without ``out`` a whole frame, or any
-    block-aligned range, decodes straight into the ``bytes`` returned; an
-    unaligned range decodes its blocks into a staging buffer and returns a
-    copy of the slice. ``out``: optional writable buffer the decoded range
-    is written into (returns the byte count written instead of ``bytes``);
-    block-aligned ranges decode straight into it. On a
+    each decoded block is verified. ``out``: optional writable buffer the
+    decoded range is written into (returns the byte count written instead
+    of ``bytes``). A block-aligned range given ``out`` decodes straight into
+    it; every other call decodes its blocks into one fresh ``bytes``, which
+    a whole frame or a block-aligned range returns as it is, and of which an
+    unaligned range returns (or copies into ``out``) the slice. On a
     ValueError (corrupt frame / crc mismatch) ``out``'s contents are
-    unspecified; without ``out``, the ``bytes`` being decoded into is
-    zeroed before the error leaves the call. ``device`` is where the block work runs (default
-    ``"cuda"``, which raises when CUDA is unavailable); ``sharding``
-    spreads it over ``sharding.mesh`` as in ``compress``."""
+    unspecified, and the fresh ``bytes`` is zeroed before the error leaves
+    the call. ``device`` is where the block work runs (default ``"cuda"``,
+    which raises when CUDA is unavailable); ``sharding`` spreads it over
+    ``sharding.mesh`` as in ``compress``."""
     with _stage("ect.decompress.parse"):
         pf = _parse_frame(frame)
     return _decompress_parsed(pf, start=start, length=length, out=out,
@@ -922,45 +846,38 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
                        sharding=None):
     """Range-decode an already-parsed frame."""
     _count("calls.decompress")
-    mesh = _mesh(device, sharding)
+    mesh = M.of_call(device, sharding)
     if length is None:
         length = pf.total_len - start
     if not (0 <= start <= pf.total_len and 0 <= length <= pf.total_len - start):
         raise ValueError("range outside frame")
-    if pf.block_size:
-        b_lo = start // pf.block_size
-        b_hi = _cdiv(start + length, pf.block_size) if length else b_lo
-    else:
-        b_lo, b_hi = 0, 0
-    wanted = range(b_lo, min(max(b_hi, b_lo), pf.n_blocks))
-    # the output buffer spans only the wanted blocks
+    # the blocks the range overlaps (``_parse_frame`` refuses a zero block
+    # size); the output buffer spans only them, and they write it whole
+    b_lo = start // pf.block_size
+    b_hi = _cdiv(start + length, pf.block_size) if length else b_lo
+    wanted = range(b_lo, min(b_hi, pf.n_blocks))
     base = b_lo * pf.block_size
-    span = (min(wanted.stop * pf.block_size, pf.total_len) - base
-            if len(wanted) else 0)
+    span = min(wanted.stop * pf.block_size, pf.total_len) - base
     aligned = start == base and span == length
-    in_place = out is None and aligned
-    cb_direct = cb_view = result = None
-    if out is not None:
-        cb_view = memoryview(out).cast("B")
-        if cb_view.readonly:
+    view = None if out is None else memoryview(out).cast("B")
+    if view is not None:
+        if view.readonly:
             raise ValueError("out buffer is read-only")
-        if cb_view.nbytes < length:
+        if view.nbytes < length:
             raise ValueError(
-                f"out buffer too small: {cb_view.nbytes} < {length}")
-        if aligned:
-            # block-aligned range: decode straight into the caller's buffer
-            cb_direct = np.frombuffer(cb_view, np.uint8, count=span)
-    if cb_direct is not None:
-        out = cb_direct
-    elif in_place:
-        # block-aligned range, no out=: decode straight into the bytes the
-        # call returns, every one of which the blocks below write
-        result, out = _new_bytes(span)
-        _count("host_bytes.decompress.output", span)
-        _count("decompress.in_place")
+                f"out buffer too small: {view.nbytes} < {length}")
+    if view is not None and aligned:
+        # block-aligned range: decode straight into the caller's buffer
+        fresh, out = None, np.frombuffer(view, np.uint8, count=span)
     else:
-        out = np.zeros(max(span, 0), np.uint8)
-        _count("host_bytes.decompress.out_buffer", out.nbytes)
+        # one fresh bytes: returned as it is over a block-aligned range,
+        # else the staging of the range's slice
+        fresh, out = _new_bytes(span)
+        if view is None and aligned:
+            _count("host_bytes.decompress.output", span)
+            _count("decompress.in_place")
+        else:
+            _count("host_bytes.decompress.out_buffer", span)
 
     try:
         shared_tbl = shared_l2 = None
@@ -1001,57 +918,55 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
                 else:
                     raise ValueError(f"bad block mode {mode}")
 
-        # each group splits into one contiguous share per mesh entry
-        fse_calls, pl_calls = ([(items[lo:hi], rl, log2, dev, rank)
-                                for (rl, log2), items in g.items()
-                                for rank, dev, lo, hi
-                                in _shares(len(items), mesh)]
-                               for g in (groups, pl_groups))
-        # every share of every group, MODE_FSE and per-lane, is dispatched on
-        # its own device before the first is drained (the JAX package's one
+        # each group splits into one contiguous share per mesh entry; every
+        # share of every group, MODE_FSE and per-lane, is dispatched on its
+        # own device before the first is drained (the JAX package's one
         # call over the mesh)
-        fse_dispatched = []
-        for items, rl, log2, dev, rank in fse_calls:
-            with _share("decompress", "dispatch", rank):
-                fse_dispatched.append(_decode_dispatch_fse(items, rl, log2, pf,
-                                                           dev))
+        fse_calls, pl_calls = ([(items, rl, l2, M.shares(len(items), mesh))
+                                for (rl, l2), items in g.items()]
+                               for g in (groups, pl_groups))
+        fse_queued = [M.dispatch("decompress", shares, lambda s:
+                                 _decode_dispatch_fse(items[s.lo: s.hi], rl,
+                                                      l2, pf, s.device))
+                      for items, rl, l2, shares in fse_calls]
         # device repack: the span of the frame that holds a device's per-lane
         # payloads goes to it once, whatever the number of groups and shares
         spans: dict = {}
-        for items, _, _, dev, _ in pl_calls:
-            if _device_repack(dev):
-                lo, hi = spans.get(dev, (items[0][3], 0))
-                spans[dev] = (min(lo, items[0][3]),
-                              max(hi, items[-1][3] + len(items[-1][1])))
+        for items, _, _, shares in pl_calls:
+            for s in shares:
+                if _device_repack(s.device):
+                    first, last = items[s.lo], items[s.hi - 1]
+                    lo, hi = spans.get(s.device, (first[3], 0))
+                    spans[s.device] = (min(lo, first[3]),
+                                       max(hi, last[3] + len(last[1])))
         with _stage("ect.decompress.h2d"):
-            pinned = _spans_cards(mesh)
+            pinned = M.spans_cards(mesh)
             on_dev = {dev: (DR.bytes_on(pf.frame, lo, hi, dev,
                                         non_blocking=pinned), lo)
                       for dev, (lo, hi) in spans.items()}
-        dispatched = []
-        for items, rl, log2, dev, rank in pl_calls:
-            with _share("decompress", "dispatch", rank):
-                dispatched.append(_decode_dispatch_pl(items, rl, log2, pf, dev,
-                                                      on_dev.get(dev)))
-        for (items, rl, _, _, rank), d in zip(fse_calls, fse_dispatched):
-            with _share("decompress", "drain", rank):
-                _decode_drain_fse(d, items, rl, pf, out, base)
-        for (items, rl, _, _, rank), d in zip(pl_calls, dispatched):
-            with _share("decompress", "drain", rank):
-                _decode_drain_pl(d, items, rl, pf, out, base)
-        crcs = {}  # block -> its crc as the device computed it
-        for d in dispatched:
-            crcs.update(d[2])
+        pl_queued = [M.dispatch("decompress", shares, lambda s:
+                                _decode_dispatch_pl(items[s.lo: s.hi], rl, l2,
+                                                    pf, s.device,
+                                                    on_dev.get(s.device)))
+                     for items, rl, l2, shares in pl_calls]
+        for (items, rl, _, shares), queued in zip(fse_calls, fse_queued):
+            M.drain("decompress", shares, queued, lambda s, q: (
+                _decode_drain_fse(q, items[s.lo: s.hi], rl, pf, out, base)))
+        for (items, rl, _, shares), queued in zip(pl_calls, pl_queued):
+            M.drain("decompress", shares, queued, lambda s, q: (
+                _decode_drain_pl(q, items[s.lo: s.hi], rl, pf, out, base)))
+        # block -> its crc as the device computed it
+        crcs = {i: crc for queued in pl_queued for q in queued
+                for i, crc in q.crcs.items()}
         with _stage("ect.decompress.output"):
             if pf.crcs is not None:
                 with _stage("ect.decompress.crc"):
                     # the per-lane blocks' crcs came back with their bytes;
                     # the other blocks are checksummed on the host
-                    counted = on_card = 0
+                    on_card = 0
                     for i in wanted:
                         rl = min(pf.block_size,
                                  pf.total_len - i * pf.block_size)
-                        counted += rl
                         crc = crcs.get(i)
                         if crc is None:
                             o = i * pf.block_size - base
@@ -1061,31 +976,33 @@ def _decompress_parsed(pf: _ParsedFrame, *, start: int = 0,
                         if crc != int(pf.crcs[i]):
                             raise ValueError(
                                 f"block {i}: crc mismatch (corrupt frame)")
-                _count("crc.decompress", counted)
+                _count("crc.decompress", span)
                 if on_card:
                     _count("crc.decompress.device", on_card)
-            if cb_view is not None:
-                if cb_direct is None:  # unaligned range: one staging copy
-                    np.frombuffer(cb_view, np.uint8, count=length)[:] = \
-                        out[start - base: start - base + length]
+            a = start - base
+            if view is not None:
+                if fresh is not None:  # unaligned range: one staging copy
+                    np.frombuffer(view, np.uint8, count=length)[:] = \
+                        out[a: a + length]
                 result = length
-            elif not in_place:  # unaligned range: one staging copy
-                result = out[start - base: start - base + length].tobytes()
-                _count("host_bytes.decompress.output", len(result))
+            elif aligned:
+                result = fresh
+            else:  # unaligned range: the slice, a copy
+                result = fresh[a: a + length]
+                _count("host_bytes.decompress.output", length)
     except BaseException:
-        if in_place:
+        if fresh is not None:
             # a failed call hands out nothing: the traceback's frames still
-            # reach the object, so none of its stale or partly written
-            # bytes stays readable there
+            # reach the fresh object, so none of its stale or partly
+            # written bytes stays readable there
             out.fill(0)
-            result = None
         raise
     with _stage("ect.decompress.release"):
         # the call's host buffers, and the loops' last references to them,
         # go inside its range, not after it
-        del out, cb_direct, groups, pl_groups, fse_calls, pl_calls
-        del fse_dispatched, dispatched, on_dev, crcs
-        sec = payload = items = d = None
+        del out, fresh, view, groups, pl_groups, fse_calls, pl_calls
+        del fse_queued, pl_queued, on_dev, crcs
+        sec = payload = items = first = last = queued = None
     return result
 
 
@@ -1108,9 +1025,9 @@ def _decode_dispatch_pl(items, raw_len, log2, pf, dev, span=None):
     ``span[1]`` on, past every item's payload) the split runs on the device
     (D2) from those bytes; without it the C++ split runs on the host and
     the words are copied. The group's decode tables are built once, before
-    the first chunk, and held until the last is collected. Returns what
-    ``_decode_drain_pl`` takes, with the dict (block -> crc) its drain
-    fills on a frame with crcs."""
+    the first chunk, and held until the last is collected. Returns the
+    ``_Queued`` that ``_decode_drain_pl`` takes, its ``crcs`` for its drain
+    to fill."""
     k = pf.k
     if not (TABLE_LOG_MIN <= log2 <= TABLE_LOG_MAX):
         raise ValueError(f"corrupt frame: table log {log2} out of range")
@@ -1173,7 +1090,7 @@ def _decode_dispatch_pl(items, raw_len, log2, pf, dev, span=None):
     # in order, so the write-back of chunk i overlaps the device decode of
     # the chunks after it (entropy_coders_tpu/frame.py:854-868)
     chunk = max(1, _cdiv(_CHUNK_RAW, raw_len))
-    handles = []
+    chunks = []
     with _stage("ect.decompress.dispatch"):
         # the group's decode tables, built once (D3 on CUDA), 2^L * 4 bytes
         # a block until the last chunk is collected; each call reads its rows
@@ -1194,24 +1111,23 @@ def _decode_dispatch_pl(items, raw_len, log2, pf, dev, span=None):
                         W, pack_bits=bool(pf.packed))
                     _count("host_bytes.decompress.split", words.nbytes)
                 words = to_device(words, dev, non_blocking=True)
-            handles.append((j0, PL.decode_lanes_norm(
+            chunks.append((j0, PL.decode_lanes_norm(
                 words, sizes_dev, norm_tables[j0: j0 + chunk], k=k, L=log2, R=R,
                 lazy=True, tables=PL.table_rows(tables, j0, j0 + chunk),
                 crc=pf.crcs is not None)))
-    return tables, handles, {}
+    return _Queued(chunks, tables, crcs={})
 
 
 def _decode_drain_pl(dispatched, items, raw_len, pf, out, out_base):
     """Collect the chunks ``_decode_dispatch_pl`` queued, in order (a lane
     cursor not drained raises ValueError), and write their blocks back
     into ``out``; on a frame with crcs, each block's crc as the device
-    computed it goes into the dispatch's dict."""
-    _tables, handles, crcs = dispatched
-    for j0, collect in handles:
+    computed it goes into the handle's ``crcs``."""
+    for j0, collect in dispatched.chunks:
         with _stage("ect.decompress.collect"):
             syms, finals, *got = collect()
             for jj, crc in enumerate(got[0] if got else ()):
-                crcs[items[j0 + jj][0]] = int(crc)
+                dispatched.crcs[items[j0 + jj][0]] = int(crc)
         with _stage("ect.decompress.write_back"):
             n_syms = syms.shape[1] * syms.shape[2]
             for jj in range(syms.shape[0]):
@@ -1231,7 +1147,8 @@ def _decode_dispatch_fse(items, raw_len, log2, pf, dev):
     are built as ``_encode_dispatch_fse`` builds them, ops.coder's
     decode_core runs (kernel D5 on CUDA) and the d2h of its outputs is
     queued. ``items`` are (block, payload, table, the payload's offset in
-    the frame). Returns what ``_decode_drain_fse`` takes."""
+    the frame). Returns the d2h's handle (``unsigned.Later``), which
+    ``_decode_drain_fse`` takes."""
     k = min(pf.k, raw_len)
     B = len(items)
     with _stage("ect.decompress.fse_checks"):
@@ -1262,21 +1179,16 @@ def _decode_dispatch_fse(items, raw_len, log2, pf, dev):
                                      half="decode").dec
         syms, emit_count, finals, done, _c = decode_core(
             words, total_bits, packed, k=k, L=log2, R=R)
-        outs = [syms, emit_count, finals, done]
-        if dev.type != "cuda":  # the plain version has run
-            return outs, lambda: None
-        return PL._d2h(outs, PL._launched(dev), 0)
+        return d2h([syms, emit_count, finals, done])
 
 
 def _decode_drain_fse(dispatched, items, raw_len, pf, out, out_base):
     """Collect one share that ``_decode_dispatch_fse`` queued (a block
     whose decode did not finish, or finished at another length, raises
     ValueError) and write its blocks back into ``out``."""
-    outs, wait = dispatched
     m = raw_len - min(pf.k, raw_len)
     with _stage("ect.decompress.fse_collect"):
-        wait()
-        syms, emit_count, finals, done = map(to_numpy, outs)
+        syms, emit_count, finals, done = dispatched.get()
     if not done.all():
         raise ValueError("decode did not terminate: corrupt frame")
     if not (emit_count == m).all():

@@ -52,7 +52,7 @@ import torch
 
 from ..kernels.launch import check as _check, launch as _launch
 from . import pl_coder as PL
-from .unsigned import as_int64, int64_to_u32
+from .unsigned import as_int64, d2h, int64_to_u32, launched
 
 __all__ = [
     "MERGE_LAUNCHES",
@@ -345,16 +345,12 @@ def encode_lanes_merged(blocks, norm_tables, *, k: int, L: int, W: int,
         tables = PL.tables_from_norm(norm_tables, L, dev, half="encode")
     words, sizes = PL.encode_call(blocks, tables, k=k, L=L, W=W)
     flat, offs = lane_merge_device(words, sizes, pack_bits=pack_bits)
-    if dev.type != "cuda":  # the plain versions have run
-        out = (flat[: int(offs[-1])].numpy(), offs.numpy(), sizes.numpy())
-        return lambda: out
-    launched = PL._launched(dev)
-    (sizes_h, offs_h), wait = PL._d2h([sizes, offs], launched, 0)
+    after = launched(dev)
+    first = d2h([sizes, offs], after)
 
     def collect():
-        wait()
-        (flat_h,), wait_flat = PL._d2h([flat[: int(offs_h[-1])]], launched, 1)
-        wait_flat()
-        return flat_h.numpy(), offs_h.numpy(), sizes_h.numpy()
+        sizes_h, offs_h = first.get()
+        (flat_h,) = d2h([flat[: int(offs_h[-1])]], after, 1).get()
+        return flat_h, offs_h, sizes_h
 
     return collect

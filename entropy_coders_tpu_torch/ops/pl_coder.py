@@ -59,8 +59,8 @@ from .. import native
 from ..kernels.launch import check as _check, launch as _launch
 from . import tables as TB
 from .crc import crc32_blocks
-from .unsigned import (as_int64, entry_device, entry_tensor, int64_to_u32,
-                       signed_view, to_device, to_numpy)
+from .unsigned import (as_int64, d2h, entry_device, entry_tensor,
+                       int64_to_u32, launched, signed_view, to_device)
 
 __all__ = [
     "DECODE_BLOCKS",
@@ -300,55 +300,6 @@ def decode_call(words, sizes, dec, *, L: int, R: int):
     return syms, finals, cursors
 
 
-# Side streams for the d2h copies of lazy calls, per card: role 0 takes the
-# copies queued when a chunk is dispatched, role 1 those queued by a
-# ``collect``. A stream runs in order, so a copy queued by a collect on
-# role 0 would wait behind the later chunks' copies, and with them behind
-# every kernel dispatched after its own.
-_COPY_STREAMS: dict[tuple[int, int], torch.cuda.Stream] = {}
-
-
-def _copy_stream(dev: torch.device, role: int) -> torch.cuda.Stream:
-    if (dev.index, role) not in _COPY_STREAMS:
-        _COPY_STREAMS[dev.index, role] = torch.cuda.Stream(dev)
-    return _COPY_STREAMS[dev.index, role]
-
-
-def _launched(dev: torch.device) -> torch.cuda.Event:
-    """An event after the work queued so far on ``dev``'s current stream
-    (the kernel just launched)."""
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(dev))
-    return ev
-
-
-def _d2h(tensors, after: torch.cuda.Event, role: int):
-    """Queue the copy of the CUDA ``tensors`` (all on one card) into pinned
-    host buffers on copy stream ``role``, once event ``after`` has passed.
-    Returns (host tensors, wait): ``wait()`` blocks on this copy's own
-    event, not on a stream, so kernels queued later keep running. The
-    sources stay referenced until ``wait()`` has seen the copy done, and
-    each is ``record_stream``-ed on the copy stream, so the allocator does
-    not hand its memory back before the copy has read it."""
-    cs = _copy_stream(tensors[0].device, role)
-    cs.wait_event(after)
-    sources, hosts = list(tensors), []
-    with torch.cuda.stream(cs):
-        for t in sources:
-            t.record_stream(cs)
-            src = signed_view(t)
-            h = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-            hosts.append(h.copy_(src, non_blocking=True).view(t.dtype))
-        done = torch.cuda.Event()
-        done.record(cs)
-
-    def wait():
-        done.synchronize()
-        sources.clear()
-
-    return hosts, wait
-
-
 def decode_lanes_norm(words, sizes, norm_tables, *, k: int, L: int, R: int,
                       lazy: bool = False, host_tables: bool | None = None,
                       tables: LaneTables | None = None, crc: bool = False):
@@ -388,16 +339,13 @@ def decode_lanes_norm(words, sizes, norm_tables, *, k: int, L: int, R: int,
         if bool((cursors != 0).any()):
             raise ValueError("corrupt stream: lane cursor not drained")
         return tuple(outs)
-    wait = lambda: None  # noqa: E731 - the plain version has run
-    if words.device.type == "cuda":
-        (*outs, cursors), wait = _d2h([*outs, cursors],
-                                      _launched(words.device), 0)
+    later = d2h([*outs, cursors])
 
     def collect():
-        wait()
-        if cursors.numpy().any():
+        *got, cursors_h = later.get()
+        if cursors_h.any():
             raise ValueError("corrupt stream: lane cursor not drained")
-        return tuple(map(to_numpy, outs))
+        return tuple(got)
 
     return collect
 
@@ -558,20 +506,14 @@ def encode_lanes_norm(blocks, norm_tables, *, k: int, L: int, W: int,
         if B == 0:
             return words[:, :0], sizes
         return words[:, :_w_act(int(sizes.max()), W)], sizes
-    if dev.type != "cuda":  # the plain version has run
-        out = (to_numpy(words[:, :_w_act(int(sizes.max()), W) if B else 0]),
-               sizes.numpy())
-        return lambda: out
-    launched = _launched(dev)
-    (sizes_h,), wait = _d2h([sizes], launched, 0)
+    after = launched(dev)
+    first = d2h([sizes], after)
 
     def collect():
-        wait()
-        s = sizes_h.numpy()
+        (s,) = first.get()
         w_act = _w_act(int(s.max()), W) if B else 0
-        (words_h,), wait_words = _d2h([words[:, :w_act]], launched, 1)
-        wait_words()
-        return to_numpy(words_h), s
+        (words_h,) = d2h([words[:, :w_act]], after, 1).get()
+        return words_h, s
 
     return collect
 

@@ -12,11 +12,17 @@ Every entry point runs on ``"cuda"`` unless its caller names another
 device (``resolve_device``); the ``ops`` entries that take numpy arrays or
 tensors follow their tensors' device (``entry_device``) and move numpy
 inputs there through pinned memory (``entry_tensor``).
+
+The copies between host and card go through here: ``to_device`` the h2d,
+``d2h`` the d2h, queued on a card's copy streams (``COPY_STREAMS``)
+behind an event (``launched``), so that the host waits for one copy and
+not for the work queued after it.
 """
 
 from __future__ import annotations
 
 import warnings
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -66,6 +72,72 @@ def to_device(arr: np.ndarray, device, non_blocking: bool = False) -> torch.Tens
     else:
         t = torch.from_numpy(np.ascontiguousarray(src)).to(device)
     return t if signed is None else t.view(_TORCH_UNSIGNED[arr.dtype])
+
+
+# Side streams for the d2h copies, (card, role) -> stream, made on first
+# use: role 0 takes the copies queued when work is dispatched, role 1 those
+# queued when it is collected. A stream runs in order, so a copy queued by
+# a collect on role 0 would wait behind the later dispatches' copies, and
+# with them behind every kernel dispatched after its own.
+COPY_STREAMS: dict[tuple[int, int], torch.cuda.Stream] = {}
+
+
+def launched(dev: torch.device) -> torch.cuda.Event | None:
+    """An event after the work queued so far on ``dev``'s current stream
+    (the kernel just launched); None for the CPU, where nothing queues."""
+    if dev.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
+
+
+class Later(NamedTuple):
+    """The d2h of some tensors as ``d2h`` queued it: ``get()`` waits for
+    that copy alone and returns them as host numpy. As a mesh share's
+    handle (``mesh.drain``) it has nothing left to queue (``ready``)."""
+    hosts: list
+    wait: Callable[[], None]
+
+    def ready(self) -> None:
+        """Nothing: the copy is queued."""
+
+    def get(self) -> list:
+        self.wait()
+        return [to_numpy(h) for h in self.hosts]
+
+
+def d2h(tensors, after=None, role: int = 0) -> Later:
+    """Queue the copy of CUDA ``tensors`` (all on one card) into pinned
+    host buffers on copy stream ``role``, once event ``after`` (default:
+    the work queued so far on their card) has passed; CPU tensors are not
+    copied, ``get`` reads them. The handle's ``wait`` blocks on this copy's
+    own event, not on a stream, so kernels queued later keep running. The
+    sources stay referenced until ``wait()`` has seen the copy done, and
+    each is ``record_stream``-ed on the copy stream, so the allocator does
+    not hand its memory back before the copy has read it."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return Later(list(tensors), lambda: None)
+    if (dev.index, role) not in COPY_STREAMS:
+        COPY_STREAMS[dev.index, role] = torch.cuda.Stream(dev)
+    cs = COPY_STREAMS[dev.index, role]
+    cs.wait_event(launched(dev) if after is None else after)
+    sources, hosts = list(tensors), []
+    with torch.cuda.stream(cs):
+        for t in sources:
+            t.record_stream(cs)
+            src = signed_view(t)
+            h = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            hosts.append(h.copy_(src, non_blocking=True).view(t.dtype))
+        done = torch.cuda.Event()
+        done.record(cs)
+
+    def wait():
+        done.synchronize()
+        sources.clear()
+
+    return Later(hosts, wait)
 
 
 def _tensors(xs):

@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from .. import frame as F
+from .. import mesh as M
 
 __all__ = [
     "init_distributed",
@@ -148,7 +149,7 @@ def compress(data, *, block_size: int = F.DEFAULT_BLOCK_SIZE,
         # single-process path, agrees
         lanes = kwargs.get("lanes")
         if lanes is None:  # resolved as frame.compress resolves it
-            lanes = F._mesh(device, sharding)[0].type == "cuda"
+            lanes = M.of_call(device, sharding)[0].type == "cuda"
         s = F.resolve_shared_table(counts_all, total_len,
                                    kwargs.get("table_log"), lanes)
         if s is None:

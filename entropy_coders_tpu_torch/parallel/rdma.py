@@ -39,7 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..frame import _mesh_devices
+from ..mesh import devices as mesh_devices
 from ..ops.pl_coder import _launch
 from ..ops.unsigned import as_int64, signed_view
 
@@ -253,7 +253,7 @@ def _ring_call(shards, mesh, accumulate=False):
     mesh that names one device n times runs virtual ranks, one of n
     distinct devices runs peer ranks; any other mesh raises."""
     global RING_LAUNCHES
-    mesh = _mesh_devices(mesh)
+    mesh = mesh_devices(mesh)
     n = len(mesh)
     chunk_bytes = _check_shards(shards, mesh)
     dtype = shards[0].dtype
@@ -308,7 +308,7 @@ def ring_all_gather(x, mesh):
     shard i on ``mesh[i]``, through the ring. Returns the gathered
     ``(n * lead, ...)`` tensor on ``mesh[0]``: equal to ``torch.cat`` of
     the shards (the JAX function's ``lax.all_gather(..., tiled=True)``)."""
-    mesh = _mesh_devices(mesh)
+    mesh = mesh_devices(mesh)
     n = len(mesh)
     x = torch.as_tensor(x)
     if n == 1:
@@ -327,7 +327,7 @@ def ring_all_reduce_histograms(counts, mesh):
     ``mesh[i]``, through the ring's accumulate. Returns the ``(256,)`` int32
     total on ``mesh[0]``, wrapped modulo 2^32 as the JAX int32 sum is
     (exact below 2^31 per counter)."""
-    mesh = _mesh_devices(mesh)
+    mesh = mesh_devices(mesh)
     n = len(mesh)
     if not isinstance(counts, torch.Tensor):
         counts = torch.from_numpy(np.ascontiguousarray(counts))

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import frame as F
+from .. import mesh as M
 from ..ops.histogram import histogram_blocks
 from ..ops.unsigned import to_device
 
@@ -41,12 +42,9 @@ def default_mesh(n_devices: int | None = None) -> tuple[torch.device, ...]:
     The shares run on their cards at once, but the host's per-block work
     (section assembly, the frame's join; on decompress the parse, the
     write-back, the crc and the final copy) does not shrink with the
-    cards, and it takes most of a call. On four NVIDIA H100 80GB HBM3 at
-    700 W the 128 MiB throughput point compressed in 46 ms against 60 ms
-    on one of them (decompress 137 / 136 ms), and 1 GiB in config 4's
-    shape (BASELINE.md) in 0.79 s against 0.86 s (decompress 1.44 /
-    1.51 s); ``chip_smoke.py`` phase ``sharded``, medians of three in
-    turns."""
+    cards, and it takes most of a call: the benchmark's four-card cell,
+    ``text_shared_1g_4card.roundtrip`` (``ect_bench``), measures what the
+    cards save."""
     if not torch.cuda.is_available():
         raise RuntimeError("default_mesh needs CUDA; pass a mesh such as "
                            "(torch.device('cpu'),) * 8 for the plain versions")
@@ -87,12 +85,12 @@ def sharded_histogram(blocks, mesh) -> torch.Tensor:
     plain torch, not the ring). Returns (256,) int64 counts on
     ``mesh[0]``: exact where the JAX function's uint32 sum wraps at 4
     GiB."""
-    mesh = F._mesh_devices(mesh)
+    mesh = M.devices(mesh)
     blocks = np.asarray(blocks, np.uint8)
-    pinned = F._spans_cards(mesh)
-    parts = [histogram_blocks(to_device(blocks[lo:hi], dev,
+    pinned = M.spans_cards(mesh)
+    parts = [histogram_blocks(to_device(blocks[s.lo: s.hi], s.device,
                                         non_blocking=pinned)).sum(dim=0)
-             for _, dev, lo, hi in F._shares(blocks.shape[0], mesh)]
+             for s in M.shares(blocks.shape[0], mesh)]
     if not parts:
         return torch.zeros(256, dtype=torch.int64, device=mesh[0])
     return torch.stack([p.to(mesh[0]) for p in parts]).sum(dim=0)

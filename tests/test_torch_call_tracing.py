@@ -19,16 +19,24 @@ The mesh is ``torch.device("cpu")`` n times (virtual ranks, the plain
 versions), on both repack routes. Tolerance: exact."""
 
 import contextlib
+import functools
+import hashlib
+import json
 import struct
+import sys
 import tracemalloc
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch.profiler import record_function  # noqa: E402
+
 from entropy_coders_tpu_torch import frame as F  # noqa: E402
+from entropy_coders_tpu_torch import mesh as M  # noqa: E402
 from entropy_coders_tpu_torch.ops import pl_coder as PL  # noqa: E402
 from entropy_coders_tpu_torch.ops.coder import encode_layout  # noqa: E402
 from entropy_coders_tpu_torch.parallel import block_sharding  # noqa: E402
@@ -48,6 +56,9 @@ def _data(kind: str, bs: int) -> np.ndarray:
     if kind == "rle":
         return np.concatenate([body[:2 * bs], np.full(bs, 7, np.uint8),
                                body[2 * bs:]])
+    if kind == "groups":  # two table-log groups under the fast policy
+        return np.concatenate([gen_sequence(p, 4 * bs, seed=i)
+                               for i, p in enumerate((0.05, 0.3, 0.9))])
     if kind == "raw_fallback":
         rng = np.random.default_rng(5)
         return np.concatenate([body[:bs], rng.integers(0, 256, bs, np.uint8),
@@ -166,6 +177,7 @@ class Ranges:
 def ranges(monkeypatch):
     r = Ranges()
     monkeypatch.setattr(F, "_stage", r)
+    monkeypatch.setattr(M, "_stage", r)
     monkeypatch.setattr(PL, "record_function", r)
     return r
 
@@ -253,7 +265,7 @@ def _lane_sizes(pf, payload, k) -> tuple[np.ndarray, int]:
 
 def _shares_of(items, n):
     return [items[lo:hi]
-            for _, _, lo, hi in F._shares(len(items), (None,) * n)]
+            for _, _, lo, hi in M.shares(len(items), (None,) * n)]
 
 
 def _expected_compress(data, frame, ckw, n, repack, discarded) -> Counter:
@@ -359,7 +371,7 @@ def _discarded(data, ckw, frame) -> Counter:
         before = dict(profiling.counters)
         F._encode_group(block[None], tables, logs, K, False, [b""],
                         np.zeros(1, np.int32), np.array([0]),
-                        (torch.device("cpu"),), lanes=ckw["lanes"])
+                        (torch.device("cpu"),), lanes=ckw["lanes"])()
         got += _counted(before, "compress")
     return got
 
@@ -531,3 +543,173 @@ def test_no_uncounted_host_buffer_of_the_inputs_size(name, monkeypatch):
             assert peak <= counted + size, (op, peak, counted, size)
     finally:
         tracemalloc.stop()
+
+
+# --- the calls' behaviour, pinned -------------------------------------------
+#
+# Every case of ``CASES`` at its own ranks and at 1 and 4, on both repack
+# routes, and decompress variants of two frames (a block-aligned and an
+# unaligned range, each with and without ``out=``; a corrupt frame, whole
+# and over a range), on one rank and the C++ repack and on four ranks and
+# the device repack: for each call the ``ect.*`` ranges it opens, in order
+# and with their depth, the change in every counter, and the sha256 of what
+# it returns (with ``out=``, of the buffer's range too) or the error it
+# raises, equal those in ``PINS`` exactly. Regenerate the file with
+# ``python -m tests.test_torch_call_tracing`` on the commit whose behaviour
+# it should pin.
+
+PINS = Path(__file__).parent / "data" / "call_pins.json"
+
+# decompress variants: (start, length) in blocks and bytes past them, and
+# whether the caller gives ``out=``; "corrupt*" flip a byte of block 2's
+# section first, "crc_mismatch" one of its crc
+VARIANTS = {"aligned": ((1, 0), (3, 0), False),
+            "aligned_out": ((1, 0), (3, 0), True),
+            "unaligned": ((1, 17), (3, 0), False),
+            "unaligned_out": ((1, 17), (3, 0), True),
+            "corrupt": (None, None, False),
+            "corrupt_range": ((1, 17), (3, 0), False),
+            "corrupt_range_out": ((1, 17), (3, 0), True),
+            "crc_mismatch": (None, None, False)}
+
+
+# ``CASES`` and two frames of two table-log groups, each group a round of
+# shares and the crc kernels queued behind the last one's encode (not in
+# ``CASES``: the lane path may gather such a group's shares on the host,
+# which ``_expected_compress`` does not model)
+PIN_CASES = dict(CASES, crc_two_groups=(
+    "groups", dict(lanes=True, checksum=True), 2, {}, None), fse_two_groups=(
+    "groups", dict(lanes=False, checksum=True, table_log=("fast", 0.0025)),
+    2, {}, None))
+
+
+def _pin_cases() -> dict:
+    """Pin id -> (case of ``PIN_CASES``, ranks, repack switch, variant)."""
+    pins = {}
+    for name, (_, _, n0, _, _) in PIN_CASES.items():
+        for n in sorted({n0, 1, 4}):
+            for repack in (None, True):
+                pins[f"{name}-{n}-{repack}"] = (name, n, repack, None)
+    for name in ("crc_fse_tail_mesh3", "crc_fse_raw_fallback"):
+        for variant in VARIANTS:
+            for n, repack in ((1, None), (4, True)):
+                pins[f"{name}-{variant}-{n}-{repack}"] = (name, n, repack,
+                                                         variant)
+    return pins
+
+
+@functools.lru_cache(maxsize=1)
+def _pins() -> dict:
+    return json.loads(PINS.read_text())
+
+
+class _DepthRanges:
+    """Stands in for ``record_function``: logs "<depth> <name>" a range."""
+
+    def __init__(self):
+        self.log, self.depth = [], 0
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        self.log.append(f"{self.depth} {name}")
+        self.depth += 1
+        try:
+            yield
+        finally:
+            self.depth -= 1
+
+
+def _corrupt(frame: bytes, variant: str) -> bytes:
+    """``frame`` with one byte of block 2's section, or of its crc,
+    flipped."""
+    pf = F._parse_frame(frame)
+    if variant == "crc_mismatch":  # the crc table ends where block 0 starts
+        at = int(pf.offs[0]) - 4 * (pf.n_blocks - 2)
+    else:
+        at = int(pf.offs[2]) + int(pf.lens[2]) // 2
+    bad = bytearray(frame)
+    bad[at] ^= 0x5A
+    return bytes(bad)
+
+
+def _pinned_call(fn, ranges) -> dict:
+    """Run ``fn`` (which returns what the call returned and the bytes to
+    hash) and record its ranges, counters and result."""
+    ranges.log.clear()
+    before = dict(profiling.counters)
+    try:
+        got, digest = fn()
+        result = {"returned": got if isinstance(got, int) else None,
+                  "sha256": hashlib.sha256(digest).hexdigest()}
+    except ValueError as e:
+        result = {"error": f"{type(e).__name__}: {e}"}
+    counters = {key: v - before.get(key, 0)
+                for key, v in profiling.counters.items()
+                if v != before.get(key, 0)}
+    return dict(result, ranges=list(ranges.log), counters=counters)
+
+
+def _record_pin(pin, mp) -> dict:
+    """What case ``pin`` of ``_pin_cases`` does, compress and decompress."""
+    name, n, repack, variant = _pin_cases()[pin]
+    kind, ckw, _, dkw, _ = PIN_CASES[name]
+    mp.setattr(F, "_DEVICE_REPACK", repack)
+    ranges = _DepthRanges()
+    for mod in list(sys.modules.values()):
+        if getattr(mod, "__name__", "").startswith("entropy_coders_tpu_torch"):
+            for attr, v in list(vars(mod).items()):
+                if v is record_function:
+                    mp.setattr(mod, attr, ranges)
+    ckw = dict(ckw)
+    data = _data(kind, BS)
+    given = data.tobytes() if ckw.pop("as_bytes", False) else data
+    frame = None
+
+    def compress():
+        nonlocal frame
+        frame = F.compress(given, block_size=BS, k=K, **ckw, **_place(n))
+        return frame, frame
+
+    got = {"compress": _pinned_call(compress, ranges)}
+    if variant is None:
+        dkw = dict(dkw)
+        with_out = dkw.pop("out", False)
+        if "start" in dkw:
+            dkw = dict(start=BS + dkw["start"], length=dkw["length"] * BS)
+    else:
+        at, size, with_out = VARIANTS[variant]
+        if variant.startswith(("corrupt", "crc")):
+            frame = _corrupt(frame, variant)
+        dkw = {} if at is None else dict(start=at[0] * BS + at[1],
+                                         length=size[0] * BS + size[1])
+    length = dkw.get("length", len(data) - dkw.get("start", 0))
+
+    def decompress():
+        if not with_out:
+            back = F.decompress(frame, **dkw, **_place(n))
+            return back, back
+        out = bytearray(length + 5)
+        back = F.decompress(frame, out=out, **dkw, **_place(n))
+        return back, bytes(out[:length])
+
+    got["decompress"] = _pinned_call(decompress, ranges)
+    return got
+
+
+@pytest.mark.parametrize("pin", sorted(_pin_cases()))
+def test_calls_reproduce_their_pinned_ranges_counters_and_bytes(pin):
+    want = _pins()[pin]
+    with pytest.MonkeyPatch.context() as mp:
+        got = _record_pin(pin, mp)
+    for op in ("compress", "decompress"):
+        for what in ("ranges", "counters", "sha256", "returned", "error"):
+            assert got[op].get(what) == want[op].get(what), (op, what)
+
+
+if __name__ == "__main__":
+    pins = {}
+    with pytest.MonkeyPatch.context() as mp:
+        for pin in sorted(_pin_cases()):
+            pins[pin] = _record_pin(pin, mp)
+            mp.undo()
+    PINS.write_text(json.dumps(pins, indent=0, sort_keys=True) + "\n")

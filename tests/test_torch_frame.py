@@ -534,18 +534,22 @@ def decodable_flip():
 
 
 @pytest.mark.parametrize("start,length", [(0, None), (2 * 4096, 4096),
-                                          (4096, 3 * 4096)],
-                         ids=["whole", "the_block", "around_it"])
+                                          (4096, 3 * 4096),
+                                          (4096 + 17, 2 * 4096)],
+                         ids=["whole", "the_block", "around_it", "unaligned"])
 def test_device_crc_catches_a_decodable_flip(decodable_flip, start, length):
     """A flipped payload bit that B1 decodes without complaint is caught
     by the block's crc, computed where it was decoded, on whole-frame and
-    range reads; the bytes decoded into in place are zeroed, and a range
-    without the block decodes."""
+    range reads; the bytes decoded into (the range's blocks, also where an
+    unaligned range stages them) are zeroed, and a range without the block
+    decodes."""
     data, frame, block, at = decodable_flip
     bad = bytearray(frame)
     bad[at] ^= 0x01
     n = len(data) if length is None else length
-    _raises_zeroed(bytes(bad), n, f"block {block}: crc mismatch",
+    lo, hi = start // 4096, -(-(start + n) // 4096)
+    blocks = min(hi * 4096, len(data)) - lo * 4096
+    _raises_zeroed(bytes(bad), blocks, f"block {block}: crc mismatch",
                    start=start, length=length)
     assert decompress(bytes(bad), start=0, length=2 * 4096) == \
         data[: 2 * 4096].tobytes()

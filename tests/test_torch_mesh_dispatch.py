@@ -14,6 +14,8 @@ Tolerance: exact. Frames equal the unsharded frame and the JAX package's
 are exact; a corrupt block in the last share raises ValueError, where the
 share's checks or its drain find it, and the mesh's next call is exact."""
 
+import types
+
 import numpy as np
 import pytest
 
@@ -21,6 +23,7 @@ torch = pytest.importorskip("torch")
 
 from entropy_coders_tpu import frame as JF  # noqa: E402
 from entropy_coders_tpu_torch import frame as F  # noqa: E402
+from entropy_coders_tpu_torch import mesh as M  # noqa: E402
 from entropy_coders_tpu_torch import parallel as P  # noqa: E402
 from entropy_coders_tpu_torch.ops import device_repack as DR  # noqa: E402
 from entropy_coders_tpu_torch.ops import pl_coder as PL  # noqa: E402
@@ -76,7 +79,7 @@ def spy_all(monkeypatch):
 def chunks(n_rows, n):
     """Kernel calls of a group of ``n_rows`` blocks over ``n`` ranks."""
     return sum(-(-(hi - lo) // CHUNK_BLOCKS)
-               for _, _, lo, hi in F._shares(n_rows, (None,) * n))
+               for _, _, lo, hi in M.shares(n_rows, (None,) * n))
 
 
 def dispatched_before_collected(entries):
@@ -146,9 +149,9 @@ def test_corrupt_block_in_last_share_raises(monkeypatch, n, kind):
         P.decompress(frame, mesh)
     if kind == "sizes":  # refused by the host checks of the last share,
         # after every share before it was dispatched and before any drain
-        last = F._shares(8, mesh)[-1]
+        last = M.shares(8, mesh)[-1]
         assert log == [("dispatch", 9)] * (chunks(8, n) - chunks(
-            last[3] - last[2], 1))
+            last.hi - last.lo, 1))
     with pytest.raises(ValueError):
         F.decompress(frame, device="cpu")
 
@@ -191,7 +194,7 @@ def spy_fse(monkeypatch, log):
 
 def shares(n_rows, n):
     """Shares of a group of ``n_rows`` blocks over ``n`` ranks."""
-    return len(F._shares(n_rows, (None,) * n))
+    return len(M.shares(n_rows, (None,) * n))
 
 
 @pytest.mark.parametrize("n", [2, 3, 8])
@@ -340,6 +343,7 @@ def test_fse_stages_are_named(monkeypatch):
         yield
 
     monkeypatch.setattr(F, "_stage", stage)
+    monkeypatch.setattr(M, "_stage", stage)
     data = gen_sequence(0.2, 8 * BS, seed=7)
     mesh = (torch.device("cpu"),) * 3
     frame = P.compress(data, mesh, block_size=BS, k=64, lanes=False)
@@ -361,7 +365,7 @@ def test_histograms_dispatched_before_any_collect(monkeypatch, jax_frame, n):
     read. One histogram a share, each of the share's own rows."""
     data, jframe = jax_frame
     log, shares, hists = [], [], set()
-    real_hist, real_later = F.histogram_blocks, F._host_later
+    real_hist, real_d2h = F.histogram_blocks, F.d2h
 
     def histogram_blocks(t, *a, **kw):
         out = real_hist(t, *a, **kw)
@@ -370,20 +374,20 @@ def test_histograms_dispatched_before_any_collect(monkeypatch, jax_frame, n):
         log.append("hist")
         return out
 
-    def host_later(t, *a, **kw):
-        get = real_later(t, *a, **kw)
-        if id(t) not in hists:
-            return get
+    def d2h(tensors, *a, **kw):
+        later = real_d2h(tensors, *a, **kw)
+        if id(tensors[0]) not in hists:
+            return later
 
-        def collect():
+        def get():
             log.append("hist_collect")
-            return get()
-        return collect
+            return later.get()
+        return types.SimpleNamespace(ready=later.ready, get=get)
 
     monkeypatch.setattr(F, "histogram_blocks", histogram_blocks)
-    monkeypatch.setattr(F, "_host_later", host_later)
+    monkeypatch.setattr(F, "d2h", d2h)
     mesh = (torch.device("cpu"),) * n
     assert P.compress(data, mesh, **KW) == jframe
     full = len(data) // BS
-    assert shares == [hi - lo for _, _, lo, hi in F._shares(full, mesh)]
+    assert shares == [hi - lo for _, _, lo, hi in M.shares(full, mesh)]
     assert log == ["hist"] * len(shares) + ["hist_collect"] * len(shares)

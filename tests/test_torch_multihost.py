@@ -150,6 +150,15 @@ def test_single_process_without_group():
             0, data.tobytes())
 
 
+def test_single_process_shared_table_resolves_lanes_as_compress_does():
+    """With ``lanes`` left to resolve, the shared table's policy is the
+    one ``frame.compress`` picks for the same device: the frames agree."""
+    data = make_data(4)
+    kw = dict(block_size=BS, k=128, checksum=True, shared_table=True)
+    frame = MH.compress(data, device="cpu", **kw)
+    assert frame == F.compress(data, device="cpu", **kw)
+
+
 @pytest.mark.parametrize("n,p", [(6, 2), (3, 4), (7, 3), (0, 2)])
 def test_owned_blocks_partition(n, p):
     ranges = [MH.owned_blocks(n, p, i) for i in range(p)]
